@@ -1,0 +1,51 @@
+"""Functional fake-quant primitives (port of ``brevitas_tpu/core/quant.py``).
+
+``int_quant_to_int`` divides by the scale (``x / scale``), as the JAX model
+path does: a multiply by the reciprocal can move a value across a rounding
+tie.
+"""
+
+from typing import Callable
+
+import torch
+
+from brevitas_tpu_torch.ops import max_int, min_int, round_ste, tensor_clamp
+
+FloatToInt = Callable[[torch.Tensor], torch.Tensor]
+
+
+def int_quant_to_int(x: torch.Tensor, scale, zero_point, bit_width, *,
+                     signed: bool, narrow_range: bool,
+                     float_to_int: FloatToInt = round_ste,
+                     clamp_fn=tensor_clamp) -> torch.Tensor:
+    """Map ``x`` to (float-valued) integers in the representable range."""
+    y = x / scale + zero_point
+    y = float_to_int(y)
+    return clamp_fn(y, min_int(signed, narrow_range, bit_width),
+                    max_int(signed, narrow_range, bit_width))
+
+
+def int_quant(x: torch.Tensor, scale, zero_point, bit_width, *,
+              signed: bool, narrow_range: bool,
+              float_to_int: FloatToInt = round_ste,
+              clamp_fn=tensor_clamp) -> torch.Tensor:
+    """Uniform affine fake-quantization (quantize, then dequantize)."""
+    y_int = int_quant_to_int(x, scale, zero_point, bit_width, signed=signed,
+                             narrow_range=narrow_range,
+                             float_to_int=float_to_int, clamp_fn=clamp_fn)
+    return (y_int - zero_point) * scale
+
+
+def int_scaling(bit_width, *, signed: bool, narrow_range: bool):
+    """Integer-range threshold: signed ranges use |min_int| so that
+    -threshold maps exactly to min_int."""
+    if signed:
+        return -min_int(signed, narrow_range, bit_width)
+    return max_int(signed, narrow_range, bit_width)
+
+
+def rescaling_scale(threshold: torch.Tensor, bit_width, *, signed: bool,
+                    narrow_range: bool) -> torch.Tensor:
+    """scale = float threshold / integer threshold."""
+    return threshold / int_scaling(bit_width, signed=signed,
+                                   narrow_range=narrow_range)

@@ -1,0 +1,92 @@
+"""Int4 weights: split-halves packing and the w4a16 GEMM (port of
+``brevitas_tpu/kernels/int4.py``; ported: ``pack_int4_rows``, its unpack
+and ``int4_weight_only_matmul``).
+
+Packing layout (``pack_int4_rows``): byte row j of the (K/2, N) packed array
+holds weight row j in its LOW nibble and weight row j + K/2 in its HIGH
+nibble. On a CUDA tensor ``int4_weight_only_matmul`` launches the
+hand-written Hopper kernel ``csrc/int4_weight_only_matmul.cu``; on a CPU
+tensor it takes the plain version.
+"""
+
+import functools
+from typing import Optional
+
+import torch
+
+from brevitas_tpu_torch.kernels import _launch
+
+
+def pack_int4_rows(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) int4-valued integers -> (K/2, N) packed int8 bytes, row j =
+    rows j (low nibble) | j + K/2 (high nibble)."""
+    k = w.shape[0]
+    if k % 2:
+        raise ValueError("K must be even to pack int4 rows")
+    w32 = w.to(torch.int32)
+    packed = (w32[: k // 2] & 0xF) | ((w32[k // 2:] & 0xF) << 4)
+    return torch.where(packed >= 128, packed - 256, packed).to(torch.int8)
+
+
+def unpack_int4_rows(w_packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4_rows`: (K/2, N) bytes -> (K, N) int8 in
+    [-8, 7], both nibbles sign-extended."""
+    p = w_packed.to(torch.int32)
+    lo = ((p & 0xF) ^ 8) - 8
+    hi = p >> 4
+    return torch.cat([lo, hi], dim=0).to(torch.int8)
+
+
+def int4_weight_only_matmul_reference(x: torch.Tensor, w_packed: torch.Tensor,
+                                      w_scale, bias: Optional[torch.Tensor] = None,
+                                      act: Optional[str] = None) -> torch.Tensor:
+    """Plain PyTorch version: x rounded to bf16, the weights unpacked, a
+    float32 matmul (bf16 x int4 products are exact in float32), then the
+    epilogue."""
+    w = unpack_int4_rows(w_packed).to(torch.float32)
+    acc = torch.matmul(x.to(torch.bfloat16).to(torch.float32), w)
+    y = acc * torch.as_tensor(w_scale, dtype=torch.float32,
+                              device=acc.device).reshape(1, -1)
+    if bias is not None:
+        y = y + bias
+    if act == "relu":
+        y = torch.clamp_min(y, 0.0)
+    return y
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    return _launch.bind("int4_weight_only_matmul",
+                        "int4_weight_only_matmul_launch", 5, 4)
+
+
+def int4_weight_only_matmul(x: torch.Tensor, w_packed: torch.Tensor, w_scale,
+                            bias: Optional[torch.Tensor] = None,
+                            act: Optional[str] = None) -> torch.Tensor:
+    """w4a16 GEMM: x (M, K) float32, rounded to bf16 as the kernel loads it;
+    w_packed (K/2, N) from :func:`pack_int4_rows`; w_scale a scalar or (N,);
+    bias None or (N,). Returns (M, N) float32."""
+    if x.device.type == "cpu":
+        return int4_weight_only_matmul_reference(x, w_packed, w_scale, bias, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"int4_weight_only_matmul runs on cuda or cpu, not {x.device}")
+    device = x.device
+    _launch.check_matrix("x", x, torch.float32, device)
+    _launch.check_matrix("w_packed", w_packed, torch.int8, device)
+    m, k = x.shape
+    k2, n = w_packed.shape
+    if k != 2 * k2:
+        raise ValueError(f"x has K = {k} but w_packed holds {2 * k2} rows")
+    relu = _launch.check_act(act)
+    ws = _launch.f32_vector("w_scale", w_scale, n, device, broadcast=True)
+    b = None if bias is None else _launch.f32_vector("bias", bias, n, device)
+    y = torch.empty((m, n), dtype=torch.float32, device=device)
+    _launch.launch(_launcher(), "int4_weight_only_matmul", device,
+                   x.data_ptr(), w_packed.data_ptr(), ws.data_ptr(),
+                   None if b is None else b.data_ptr(), y.data_ptr(),
+                   m, n, k2, relu)
+    int4_weight_only_matmul.launches += 1
+    return y
+
+
+int4_weight_only_matmul.launches = 0

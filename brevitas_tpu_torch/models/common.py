@@ -1,0 +1,101 @@
+"""Shared model components for the bnn_pynq family (port of
+``brevitas_tpu/models/common.py``), plus the BatchNorm that ``FC`` uses.
+"""
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from brevitas_tpu_torch.core.restrict import FloatToIntImpl, RestrictType
+from brevitas_tpu_torch.quant.config import QuantConfig, QuantType, ScalingImplType
+
+
+def common_weight_quant(bit_width: Optional[int]) -> QuantConfig:
+    """CommonWeightQuant: const scale 1.0, narrow signed; BINARY at 1 bit;
+    no quantization when bit_width is None."""
+    if bit_width is None:
+        return QuantConfig(quant_type=QuantType.NONE)
+    return QuantConfig(
+        quant_type=QuantType.BINARY if bit_width == 1 else QuantType.INT,
+        bit_width=float(bit_width), signed=True, narrow_range=True,
+        scaling_impl=ScalingImplType.CONST, scaling_const=1.0)
+
+
+def common_act_quant(bit_width: Optional[int], min_val: float = -1.0,
+                     max_val: float = 1.0, narrow_range: bool = True,
+                     restrict: RestrictType = RestrictType.FP) -> QuantConfig:
+    """CommonActQuant: const scale max_val, clamped binary at 1 bit."""
+    if bit_width is None:
+        return QuantConfig(quant_type=QuantType.NONE)
+    return QuantConfig(
+        quant_type=QuantType.BINARY if bit_width == 1 else QuantType.INT,
+        bit_width=float(bit_width), signed=True, narrow_range=narrow_range,
+        scaling_impl=ScalingImplType.CONST, scaling_const=max_val,
+        restrict_scaling=restrict,
+        restrict_scaling_float_to_int=FloatToIntImpl.CEIL)
+
+
+def _rsqrt(v: torch.Tensor) -> torch.Tensor:
+    """float32 rsqrt formed in float64 and rounded once. torch's float32
+    rsqrt gives different last bits on the CPU and the card; this rounds to
+    the same float32 on both, so a CPU copy of a served model reproduces the
+    card's output exactly."""
+    return torch.rsqrt(v.double()).to(v.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Feature batch norm over the leading axis with flax nnx's semantics
+    (``nnx.BatchNorm`` as ``FC`` builds it), which ``nn.BatchNorm1d`` does
+    not have: the batch variance is ``E[x^2] - E[x]^2`` clamped at 0, the
+    running statistics move as ``ra = momentum * ra + (1 - momentum) *
+    batch`` with the *biased* variance, and the output is ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias``."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("mean", torch.zeros(num_features))
+        self.register_buffer("var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean = x.mean(0)
+            var = torch.clamp_min((x * x).mean(0) - mean * mean, 0.0)
+            with torch.no_grad():
+                self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
+                self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) * (_rsqrt(var + self.eps) * self.scale) + self.bias
+
+
+class TensorNorm(nn.Module):
+    """Whole-tensor batch norm with a scalar learned affine; the running
+    variance is the unbiased one."""
+
+    def __init__(self, eps: float = 1e-4, momentum: float = 0.1):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(()))
+        self.bias = nn.Parameter(torch.zeros(()))
+        self.register_buffer("running_mean", torch.zeros(()))
+        self.register_buffer("running_var", torch.ones(()))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean = torch.mean(x)
+            biased_var = torch.var(x, correction=0)
+            n = x.numel()
+            unbiased_var = biased_var * n / max(n - 1, 1)
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * unbiased_var)
+            return (x - mean) * _rsqrt(biased_var + self.eps) * self.weight + self.bias
+        return ((x - self.running_mean) * _rsqrt(self.running_var + self.eps)
+                * self.weight + self.bias)

@@ -1,0 +1,284 @@
+"""Quantizer modules — the stateful resolution of a QuantConfig (port of
+``brevitas_tpu/quant/quantizers.py``).
+
+Ported: CONST bit-width; CONST and two-phase PARAMETER_FROM_STATS scaling
+(``ParameterFromRuntimeStatsScaling``); ZERO zero-point; quant delay; the
+INT/NONE weight and activation quantizers (per-tensor) and the NONE bias
+quantizer. Configs that need anything else raise ``NotImplementedError``.
+
+The JAX package selects the two-phase scaler's branch with ``lax.cond`` on
+a carried counter so it stays inside one jitted step; PyTorch runs eagerly,
+so the port branches in Python on the same counter, with the same buffer,
+value and handoff semantics. Train/eval is ``nn.Module.training``.
+"""
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from brevitas_tpu_torch.core import quant as Qf
+from brevitas_tpu_torch.core import restrict as R
+from brevitas_tpu_torch.core import stats as S
+from brevitas_tpu_torch.ops import (
+    abs_binary_sign_grad,
+    scalar_clamp_min_ste,
+    tensor_clamp,
+    tensor_clamp_ste,
+)
+from brevitas_tpu_torch.quant.config import (
+    BitWidthImplType,
+    QuantConfig,
+    QuantType,
+    ScalingImplType,
+    ZeroPointImplType,
+)
+from brevitas_tpu_torch.quant_tensor import QuantTensor
+
+
+def stats_view(x: torch.Tensor) -> torch.Tensor:
+    """View ``x`` as (groups, elems) for the stats ops: one group, as
+    per-tensor scaling needs (per-channel scaling is not ported yet)."""
+    return x.reshape(1, -1)
+
+
+def _expand(stat: torch.Tensor, bshape: Tuple[int, ...]) -> torch.Tensor:
+    return stat.reshape(bshape)
+
+
+class BitWidth(nn.Module):
+    """CONST bit-width (a Python float)."""
+
+    def __init__(self, cfg: QuantConfig):
+        super().__init__()
+        if BitWidthImplType(cfg.bit_width_impl) != BitWidthImplType.CONST:
+            raise NotImplementedError("learned bit-widths are not ported yet")
+        self.const = float(cfg.bit_width)
+
+    def forward(self) -> float:
+        return self.const
+
+
+class _RestrictClamp:
+    """restrict.forward, then the STE min-clamp."""
+
+    def __init__(self, cfg: QuantConfig):
+        self.restrict = R.RestrictType(cfg.restrict_scaling)
+        self.f2i = cfg.restrict_scaling_float_to_int
+        self.min_val = cfg.scaling_min_val
+
+    def preprocess(self, v):
+        return R.preprocess(self.restrict, v)
+
+    def preprocess_runtime(self, v: torch.Tensor) -> torch.Tensor:
+        return R.preprocess(self.restrict, v)
+
+    def forward(self, stored: torch.Tensor) -> torch.Tensor:
+        return self.clamp_only(R.forward(self.restrict, stored, self.f2i))
+
+    def clamp_only(self, v: torch.Tensor) -> torch.Tensor:
+        if self.min_val is not None and self.min_val != 0:
+            v = scalar_clamp_min_ste(v, self.min_val)
+        return v
+
+
+class ConstScaling(nn.Module):
+    def __init__(self, cfg: QuantConfig, init: float, bshape: Tuple[int, ...] = ()):
+        super().__init__()
+        self.rc = _RestrictClamp(cfg)
+        self.register_buffer("stored", torch.full(bshape, self.rc.preprocess(float(init))))
+
+    def forward(self, stats_input: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.rc.forward(self.stored)
+
+
+def _momentum_update(buf: torch.Tensor, update: torch.Tensor,
+                     momentum: Optional[float], counter: int) -> torch.Tensor:
+    """EMA, or the cumulative running mean when ``momentum`` is None."""
+    update = update.detach()
+    if momentum is None:
+        return buf * (counter / (counter + 1)) + update / (counter + 1)
+    return buf * (1 - momentum) + momentum * update
+
+
+class ParameterFromRuntimeStatsScaling(nn.Module):
+    """Two-phase scale: collect running stats for ``collect_stats_steps``
+    training steps, then hand the buffer off into a learned parameter.
+
+    Counter ``c`` (training): ``c < steps`` collects into the buffer and
+    returns the batch stat; ``c == steps`` copies the buffer into ``value``
+    and returns it; afterwards ``value`` is returned. Eval reads the buffer
+    while ``c <= steps`` and ``value`` after — so a quantizer calibrated for
+    one step with ``steps=1`` serves from its buffer.
+    """
+
+    def __init__(self, cfg: QuantConfig, stats_fn, bshape: Tuple[int, ...] = ()):
+        super().__init__()
+        if cfg.collect_stats_steps <= 0:
+            raise ValueError("collect_stats_steps must be positive")
+        self.rc = _RestrictClamp(cfg)
+        self.stats_fn = stats_fn
+        self.bshape = bshape
+        self.steps = int(cfg.collect_stats_steps)
+        self.momentum = cfg.scaling_stats_momentum
+        self.register_buffer("buffer", torch.ones(bshape))
+        self.value = nn.Parameter(torch.ones(bshape))
+        self.register_buffer("counter", torch.zeros((), dtype=torch.int32))
+
+    def _from_param(self) -> torch.Tensor:
+        return abs_binary_sign_grad(self.rc.forward(self.value))
+
+    def forward(self, stats_input: Optional[torch.Tensor]) -> torch.Tensor:
+        c = int(self.counter)
+        if not self.training:
+            if c <= self.steps:
+                return abs_binary_sign_grad(
+                    self.rc.forward(self.rc.preprocess_runtime(self.buffer)))
+            return self._from_param()
+        if c > self.steps:
+            return self._from_param()
+        stats = _expand(self.stats_fn(stats_input), self.bshape)
+        clamped = self.rc.clamp_only(stats).to(self.buffer.dtype)
+        with torch.no_grad():
+            if c < self.steps:
+                self.buffer.copy_(clamped if c == 0 else _momentum_update(
+                    self.buffer, clamped, self.momentum, c))
+            else:
+                self.value.copy_(self.rc.preprocess_runtime(self.buffer))
+            self.counter += 1
+        if c < self.steps:
+            return abs_binary_sign_grad(clamped)
+        return self._from_param()
+
+
+def build_scaling(cfg: QuantConfig, bshape: Tuple[int, ...],
+                  init_stats_input: Optional[torch.Tensor] = None) -> nn.Module:
+    """Resolve ScalingImplType into a scaling module. Ported: CONST, and
+    PARAMETER_FROM_STATS collected at run time."""
+    impl = ScalingImplType(cfg.scaling_impl)
+    if impl == ScalingImplType.CONST:
+        if cfg.scaling_const is None:
+            raise ValueError("CONST scaling requires scaling_const")
+        return ConstScaling(cfg, cfg.scaling_const, bshape)
+    if impl == ScalingImplType.PARAMETER_FROM_STATS and init_stats_input is None:
+        stats_fn = S.stats_fn(cfg.scaling_stats_op,
+                              high_percentile_q=cfg.high_percentile_q)
+        return ParameterFromRuntimeStatsScaling(cfg, stats_fn, bshape)
+    raise NotImplementedError(f"scaling {impl.value} is not ported yet")
+
+
+class ZeroPoint(nn.Module):
+    """ZERO zero-point."""
+
+    def __init__(self, cfg: QuantConfig):
+        super().__init__()
+        if ZeroPointImplType(cfg.zero_point_impl) != ZeroPointImplType.ZERO:
+            raise NotImplementedError("only the ZERO zero-point is ported yet")
+
+    def forward(self, stats_input, scale, bit_width) -> float:
+        return 0.0
+
+
+class QuantDelay(nn.Module):
+    """Return the float value for the first ``steps`` training steps."""
+
+    def __init__(self, steps: int):
+        super().__init__()
+        self.steps = int(steps)
+        if self.steps > 0:
+            self.register_buffer("counter", torch.zeros((), dtype=torch.int32))
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        if self.steps <= 0:
+            return y
+        c = int(self.counter)
+        if self.training:
+            self.counter += 1
+        return x if c < self.steps else y
+
+
+def _check_int_per_tensor(cfg: QuantConfig, quant_type: QuantType) -> None:
+    if quant_type != QuantType.INT:
+        raise NotImplementedError(f"{quant_type.value} quantization is not ported yet")
+    if cfg.scaling_per_output_channel:
+        raise NotImplementedError("per-channel scaling is not ported yet")
+
+
+class ParameterQuantizer(nn.Module):
+    """Weight-side quantizer: INT with per-tensor scaling, or NONE."""
+
+    def __init__(self, cfg: QuantConfig, weight_init: torch.Tensor):
+        super().__init__()
+        self.cfg = cfg
+        self.quant_type = QuantType(cfg.quant_type)
+        if self.quant_type == QuantType.NONE:
+            return
+        _check_int_per_tensor(cfg, self.quant_type)
+        self._float_to_int = R.float_to_int_fn(cfg.float_to_int)
+        self.bit_width_impl = BitWidth(cfg)
+        self.scaling = build_scaling(cfg, (), init_stats_input=stats_view(weight_init))
+        self.zero_point = ZeroPoint(cfg)
+        self.delay = QuantDelay(cfg.quant_delay_steps)
+
+    def forward(self, w: torch.Tensor) -> QuantTensor:
+        cfg = self.cfg
+        if self.quant_type == QuantType.NONE:
+            return QuantTensor(w)
+        view = stats_view(w)
+        bit_width = self.bit_width_impl()
+        scale = Qf.rescaling_scale(self.scaling(view), bit_width, signed=cfg.signed,
+                                   narrow_range=cfg.narrow_range)
+        zp = self.zero_point(view, scale, bit_width)
+        y = Qf.int_quant(w, scale, zp, bit_width, signed=cfg.signed,
+                         narrow_range=cfg.narrow_range,
+                         float_to_int=self._float_to_int,
+                         clamp_fn=tensor_clamp_ste if cfg.clamp_ste else tensor_clamp)
+        return QuantTensor(self.delay(w, y), scale, zp, bit_width, signed=cfg.signed)
+
+
+class ActQuantizer(nn.Module):
+    """Activation-side quantizer: INT with per-tensor scaling, or NONE."""
+
+    def __init__(self, cfg: QuantConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.quant_type = QuantType(cfg.quant_type)
+        if self.quant_type == QuantType.NONE:
+            return
+        _check_int_per_tensor(cfg, self.quant_type)
+        self._float_to_int = R.float_to_int_fn(cfg.float_to_int)
+        self.bit_width_impl = BitWidth(cfg)
+        self.scaling = build_scaling(cfg, ())
+        self.zero_point = ZeroPoint(cfg)
+        self.delay = QuantDelay(cfg.quant_delay_steps)
+
+    def forward(self, x: torch.Tensor) -> QuantTensor:
+        cfg = self.cfg
+        if self.quant_type == QuantType.NONE:
+            return QuantTensor(x, training=self.training)
+        view = stats_view(x)
+        bit_width = self.bit_width_impl()
+        scale = Qf.rescaling_scale(self.scaling(view), bit_width, signed=cfg.signed,
+                                   narrow_range=cfg.narrow_range)
+        zp = self.zero_point(view, scale, bit_width)
+        y = Qf.int_quant(x, scale, zp, bit_width, signed=cfg.signed,
+                         narrow_range=cfg.narrow_range,
+                         float_to_int=self._float_to_int,
+                         clamp_fn=tensor_clamp_ste if cfg.clamp_ste else tensor_clamp)
+        return QuantTensor(self.delay(x, y), scale, zp, bit_width,
+                           signed=cfg.signed, training=self.training)
+
+
+class BiasQuantizer(nn.Module):
+    """Bias quantizer: NONE only (the bnn_pynq models have no bias)."""
+
+    def __init__(self, cfg: QuantConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.quant_type = QuantType(cfg.quant_type)
+        if self.quant_type != QuantType.NONE:
+            raise NotImplementedError("bias quantization is not ported yet")
+
+    def forward(self, b: torch.Tensor, input_scale=None,
+                input_bit_width=None) -> QuantTensor:
+        return QuantTensor(b)
