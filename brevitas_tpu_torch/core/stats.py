@@ -2,7 +2,8 @@
 ``brevitas_tpu/core/stats.py``).
 
 Inputs are viewed as 2-D ``(groups, elems)``; each op reduces the last axis
-and returns ``(groups,)``. Ported: PERCENTILE (``abs_percentile``).
+and returns ``(groups,)``. Ported: MAX (``abs_max``) and PERCENTILE
+(``abs_percentile``).
 """
 
 import enum
@@ -30,6 +31,10 @@ class StatsOp(str, enum.Enum):
     MSE = "mse"
 
 
+def abs_max(x: torch.Tensor) -> torch.Tensor:
+    return torch.amax(torch.abs(x), dim=-1)
+
+
 def abs_percentile(x: torch.Tensor, q: float) -> torch.Tensor:
     """q-th percentile of |x| with torch.kthvalue's index rule:
     k = floor(q/100 * n + 0.5), 1-indexed, clamped to [1, n]."""
@@ -41,6 +46,8 @@ def abs_percentile(x: torch.Tensor, q: float) -> torch.Tensor:
 def stats_fn(op: StatsOp, *, high_percentile_q: Optional[float] = None):
     """Resolve a StatsOp to a callable ``f(x2d) -> (groups,)``."""
     op = StatsOp(op)
+    if op == StatsOp.MAX:
+        return abs_max
     if op == StatsOp.PERCENTILE:
         if high_percentile_q is None:
             raise ValueError("percentile requires high_percentile_q")

@@ -1,15 +1,17 @@
 """QAT -> integer-domain serving conversion (port of
-``brevitas_tpu/graph/convert_int.py``; ported: the QuantLinear twins and
-``convert_integer_inference`` restricted to QuantLinear).
+``brevitas_tpu/graph/convert_int.py``; ported: the QuantLinear twins, the
+QuantMultiheadAttention twin and ``convert_integer_inference`` restricted
+to those layers).
 
 Freeze the trained quantizer state, cache the integer weights and scales,
 and serve with the integer GEMM kernels, dequant in the epilogue. With
 x_q = x/s_x + zp_x, y = s_x s_w (x_q @ w_q - zp_x * colsum(w_q)), so the
 zero-point correction folds into the bias.
 
-The JAX package sends small shapes to XLA's plain path (``_prefer_pallas_gemm``
-and the M >= 16 gate, measured on a TPU v5e). No such gate carries over:
-on the card every serving call launches the hand-written kernel.
+The JAX package sends small shapes to XLA's plain path (``_prefer_pallas_gemm``,
+the M >= 16 gate and the attention gate, measured on a TPU v5e). No such
+gate carries over: on the card every serving call launches the hand-written
+kernel.
 """
 
 from typing import Optional
@@ -17,8 +19,18 @@ from typing import Optional
 import torch
 from torch import nn
 
+from brevitas_tpu_torch import config
 from brevitas_tpu_torch.graph.base import named_modules, set_module
-from brevitas_tpu_torch.kernels import int4_weight_only_matmul, int8_matmul, pack_int4_rows
+from brevitas_tpu_torch.kernels import (
+    int4_weight_only_matmul,
+    int4kv_decode_attention,
+    int8_attention_dispatch,
+    int8_decode_attention,
+    int8_matmul,
+    pack_int4_rows,
+    update_kv_packed,
+)
+from brevitas_tpu_torch.nn.attention import QuantMultiheadAttention, apply_rope
 from brevitas_tpu_torch.nn.linear import QuantLinear
 from brevitas_tpu_torch.ops import max_int, min_int
 from brevitas_tpu_torch.quant.config import QuantType
@@ -181,18 +193,165 @@ class WeightOnlyInt4InferenceLinear(nn.Module):
         return _apply_output_quant(y, self.output_quant)
 
 
+class Int8InferenceAttention(nn.Module):
+    """Serving twin of a trained QuantMultiheadAttention: int8 projection
+    GEMMs around the int8 attention core (``kernels.int8_attention``), with
+    RoPE and grouped-query attention, and decoding against an int8 or an
+    int4-packed KV cache. Needs symmetric signed q/k/v quantizers and an
+    unsigned probability quantizer with zero zero-point (the layer's
+    defaults)."""
+
+    def __init__(self, mha: QuantMultiheadAttention):
+        super().__init__()
+        self.num_heads = mha.num_heads
+        self.head_dim = mha.head_dim
+        self.embed_dim = mha.embed_dim
+        self.use_rope = mha.use_rope
+        self.rope_theta = mha.rope_theta
+        # GQA: the caches hold only the KV heads; each kernel reads KV head
+        # h // groups for query head h
+        self.num_kv_heads = mha.num_kv_heads
+        self.kv_groups = self.num_heads // self.num_kv_heads
+        self.q_proj = Int8InferenceLinear(mha.q_proj)
+        self.k_proj = Int8InferenceLinear(mha.k_proj)
+        self.v_proj = Int8InferenceLinear(mha.v_proj)
+        self.out_proj = Int8InferenceLinear(mha.out_proj)
+        with torch.no_grad():
+            for name in ("q", "k", "v"):
+                qz = getattr(mha, f"{name}_quant")
+                s, zp, lo, hi = _freeze_act_quant(qz)
+                if float(zp) != 0.0 or not qz.cfg.signed:
+                    raise ValueError("the int8 attention core needs symmetric signed "
+                                     "q/k/v quantizers")
+                self.register_buffer(f"{name}_scale", s.reshape(()).to(torch.float32))
+                setattr(self, f"{name}_lo", lo)
+                setattr(self, f"{name}_hi", hi)
+            p_s, p_zp, p_lo, p_hi = _freeze_act_quant(mha.probs_quant)
+            if p_lo != 0.0 or float(p_zp) != 0.0:
+                raise ValueError("the probability quantizer must be unsigned with "
+                                 "zero zero-point (softmax output is [0, 1])")
+            self.register_buffer("p_scale", p_s.reshape(()).to(torch.float32))
+        self.p_levels = int(p_hi)
+        # K/V codes of 4 bits or fewer fit a nibble: the decode cache packs
+        # two positions per byte under the policy of config.py
+        fits_nibble = (self.k_lo >= -8.0 and self.k_hi <= 7.0
+                       and self.v_lo >= -8.0 and self.v_hi <= 7.0)
+        policy = str(config.INT4_KV_CACHE).lower()
+        if policy in ("0", "false", "off"):
+            self.kv_int4 = False
+        elif policy in ("1", "true", "on"):
+            self.kv_int4 = fits_nibble
+        else:
+            self.kv_int4 = fits_nibble and (
+                mha.kv_pack_requested or self.head_dim >= config.INT4_KV_MIN_HEAD_DIM)
+
+    def _to_int8(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """Straight to the integer codes, without the fake-quant round trip."""
+        q = torch.round(x / getattr(self, f"{name}_scale"))
+        return torch.clamp(q, getattr(self, f"{name}_lo"),
+                           getattr(self, f"{name}_hi")).to(torch.int8)
+
+    def _rope(self, y: torch.Tensor, n_heads: int, positions: torch.Tensor) -> torch.Tensor:
+        b, t = y.shape[0], y.shape[1]
+        return apply_rope(y.reshape(b, t, n_heads, self.head_dim), positions,
+                          self.rope_theta).reshape(b, t, n_heads * self.head_dim)
+
+    def _heads(self, y: torch.Tensor, n_heads: int) -> torch.Tensor:
+        """(B, T, n*D) -> (B*n, T, D)."""
+        b, t = y.shape[0], y.shape[1]
+        return y.reshape(b, t, n_heads, self.head_dim).transpose(1, 2) \
+            .reshape(b * n_heads, t, self.head_dim)
+
+    def _merge_heads(self, out: torch.Tensor, b: int, t: int) -> torch.Tensor:
+        return out.reshape(b, self.num_heads, t, self.head_dim).transpose(1, 2) \
+            .reshape(b, t, self.embed_dim)
+
+    def forward(self, x, causal: bool = False) -> torch.Tensor:
+        x = _val(x)
+        b, t, _ = x.shape
+        q_f, k_f = self.q_proj(x), self.k_proj(x)
+        if self.use_rope:
+            # the codes are codes of the rotated values, as in the fake-quant model
+            positions = torch.arange(t, device=x.device)
+            q_f = self._rope(q_f, self.num_heads, positions)
+            k_f = self._rope(k_f, self.num_kv_heads, positions)
+        q = self._heads(self._to_int8(q_f, "q"), self.num_heads)
+        k = self._heads(self._to_int8(k_f, "k"), self.num_kv_heads)
+        v = self._heads(self._to_int8(self.v_proj(x), "v"), self.num_kv_heads)
+        out = int8_attention_dispatch(q, k, v, self.q_scale, self.k_scale, self.v_scale,
+                                      self.p_scale, head_dim=self.head_dim,
+                                      p_levels=self.p_levels, causal=causal,
+                                      kv_groups=self.kv_groups)
+        return self.out_proj(self._merge_heads(out, b, t).to(x.dtype))
+
+    # -- incremental decoding ------------------------------------------------
+    # The K/V quantizers are frozen per-tensor grids, so caching their codes
+    # is exact.
+
+    def init_decode_cache(self, batch: int, max_len: int, dtype=None):
+        """(k_cache, v_cache) int8 of shape (B*KVH, max_len, D), or packed
+        (B*KVH, l_half, D) with l_half = ceil(max_len / 2), rounded up to a
+        multiple of 128 from max_len 256 on: the JAX package's layout, kept
+        position for position. ``dtype`` is accepted and ignored."""
+        rows = batch * self.num_kv_heads
+        if self.kv_int4:
+            l_half = -(-max_len // 2)
+            if max_len >= 256:
+                l_half += (-l_half) % 128
+            shape = (rows, l_half, self.head_dim)
+        else:
+            shape = (rows, max_len, self.head_dim)
+        device = self.q_scale.device
+        return (torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape, dtype=torch.int8, device=device))
+
+    def decode_step(self, x_t, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int):
+        """One token (B, 1, E) against the cache; writes this step's K/V codes
+        at ``pos`` IN PLACE (the JAX package returns new caches; a copy per
+        step would cost more than the step). Returns (y_t, k_cache, v_cache)."""
+        x_t = _val(x_t)
+        b = x_t.shape[0]
+        q_f, k_f = self.q_proj(x_t), self.k_proj(x_t)
+        if self.use_rope:
+            positions = torch.full((1,), pos, device=x_t.device)
+            q_f = self._rope(q_f, self.num_heads, positions)
+            k_f = self._rope(k_f, self.num_kv_heads, positions)
+        q = self._heads(self._to_int8(q_f, "q"), self.num_heads)
+        k_t = self._heads(self._to_int8(k_f, "k"), self.num_kv_heads)
+        v_t = self._heads(self._to_int8(self.v_proj(x_t), "v"), self.num_kv_heads)
+        scales = (self.q_scale, self.k_scale, self.v_scale, self.p_scale)
+        if self.kv_int4:
+            update_kv_packed(k_cache, k_t, pos)
+            update_kv_packed(v_cache, v_t, pos)
+            attend = int4kv_decode_attention
+        else:
+            k_cache[:, pos:pos + 1] = k_t
+            v_cache[:, pos:pos + 1] = v_t
+            attend = int8_decode_attention
+        out = attend(q, k_cache, v_cache, pos, *scales, head_dim=self.head_dim,
+                     p_levels=self.p_levels, kv_groups=self.kv_groups)
+        return self.out_proj(self._merge_heads(out, b, 1).to(x_t.dtype)), k_cache, v_cache
+
+
 def convert_integer_inference(model: nn.Module) -> nn.Module:
-    """Swap every eligible trained QuantLinear for its integer serving twin,
-    in place: weight-only int4 when it has no input quantizer and weights
-    of 4 bits or fewer, else int8 (frozen input grid, or the carried grid
-    when it has no input quantizer). Other layers stay on the fake-quant
-    path."""
+    """Swap every eligible trained layer for its integer serving twin, in
+    place: QuantMultiheadAttention for ``Int8InferenceAttention`` (whose
+    projections become int8 twins with it); a QuantLinear for weight-only
+    int4 when it has no input quantizer and weights of 4 bits or fewer, else
+    int8 (frozen input grid, or the carried grid when it has no input
+    quantizer). Other layers stay on the fake-quant path."""
+    converted = []
     for path, mod in list(named_modules(model)):
-        if not (isinstance(mod, QuantLinear)
-                and mod.weight_quant.quant_type == QuantType.INT):
-            continue
+        if any(path.startswith(p + ".") for p in converted):
+            continue  # its parent already became a serving twin
         try:
-            if (mod.input_quant.quant_type == QuantType.NONE
+            if isinstance(mod, QuantMultiheadAttention):
+                set_module(model, path, Int8InferenceAttention(mod))
+                converted.append(path)
+            elif not (isinstance(mod, QuantLinear)
+                      and mod.weight_quant.quant_type == QuantType.INT):
+                continue
+            elif (mod.input_quant.quant_type == QuantType.NONE
                     and float(mod.quant_weight().bit_width) <= 4.0):
                 set_module(model, path, WeightOnlyInt4InferenceLinear(mod))
             else:

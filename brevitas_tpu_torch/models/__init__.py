@@ -1,5 +1,7 @@
-"""Models (port of ``brevitas_tpu/models``; ported: the FC family)."""
+"""Models (port of ``brevitas_tpu/models``; ported: the FC family and
+QuantLlama)."""
 
 from brevitas_tpu_torch.models.fc import FC, lfc, sfc, tfc
+from brevitas_tpu_torch.models.llama import QuantLlama, quant_llama_tiny
 
-__all__ = ["FC", "lfc", "sfc", "tfc"]
+__all__ = ["FC", "lfc", "sfc", "tfc", "QuantLlama", "quant_llama_tiny"]

@@ -1,5 +1,7 @@
 """Shared model components for the bnn_pynq family (port of
-``brevitas_tpu/models/common.py``), plus the BatchNorm that ``FC`` uses.
+``brevitas_tpu/models/common.py``), plus the norms with flax nnx's
+semantics that the models use: BatchNorm for ``FC``, RMSNorm for
+``QuantLlama``.
 """
 
 from typing import Optional
@@ -99,3 +101,20 @@ class TensorNorm(nn.Module):
             return (x - mean) * _rsqrt(biased_var + self.eps) * self.weight + self.bias
         return ((x - self.running_mean) * _rsqrt(self.running_var + self.eps)
                 * self.weight + self.bias)
+
+
+class RMSNorm(nn.Module):
+    """Root-mean-square norm over the last axis with flax nnx's semantics
+    (``nnx.RMSNorm`` as ``QuantLlama`` builds it): ``x * (rsqrt(mean(x^2) +
+    eps) * scale)``, epsilon 1e-6. The mean and rsqrt are formed in float64
+    and rounded once, so the card and a CPU copy agree (the order of a
+    float32 sum differs between them)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        var = torch.mean(torch.square(x.double()), dim=-1, keepdim=True)
+        return x * (torch.rsqrt(var + self.eps).to(x.dtype) * self.scale)

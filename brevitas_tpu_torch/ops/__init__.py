@@ -1,7 +1,14 @@
 """Numeric and straight-through-estimator primitives (port of
 ``brevitas_tpu/ops``)."""
 
-from brevitas_tpu_torch.ops.numeric import max_int, min_int, tensor_clamp
+from brevitas_tpu_torch.ops.numeric import (
+    MASKED_SCORE,
+    causal_mask,
+    max_int,
+    min_int,
+    softmax,
+    tensor_clamp,
+)
 from brevitas_tpu_torch.ops.ste import (
     abs_binary_sign_grad,
     ceil_ste,
@@ -10,5 +17,6 @@ from brevitas_tpu_torch.ops.ste import (
     tensor_clamp_ste,
 )
 
-__all__ = ["max_int", "min_int", "tensor_clamp", "round_ste", "ceil_ste",
-           "tensor_clamp_ste", "scalar_clamp_min_ste", "abs_binary_sign_grad"]
+__all__ = ["MASKED_SCORE", "causal_mask", "max_int", "min_int", "softmax",
+           "tensor_clamp", "round_ste", "ceil_ste", "tensor_clamp_ste",
+           "scalar_clamp_min_ste", "abs_binary_sign_grad"]

@@ -35,3 +35,21 @@ def min_int(signed: bool, narrow_range: bool, bit_width: Number) -> Number:
     if signed and not narrow_range:
         return -(2.0 ** (bit_width - 1.0))
     return 0.0
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis as ``jax.nn.softmax`` forms it:
+    ``exp(x - max) / sum``, a division; torch's own softmax multiplies by
+    the reciprocal of the sum, which moves the last bit."""
+    e = torch.exp(x - torch.amax(x, dim=-1, keepdim=True))
+    return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+# finfo(float32).min / 2: the score of a masked attention position; an
+# all-masked row softmaxes to uniform instead of NaN
+MASKED_SCORE = torch.finfo(torch.float32).min / 2
+
+
+def causal_mask(tq: int, tk: int, device) -> torch.Tensor:
+    """Rectangular causal mask: query row i sees keys up to i + (tk - tq)."""
+    return torch.ones((tq, tk), dtype=torch.bool, device=device).tril(tk - tq)

@@ -8,16 +8,19 @@ from brevitas_tpu_torch.core.stats import StatsOp
 from brevitas_tpu_torch.quant.config import QuantConfig, QuantType, ScalingImplType
 
 _INT = QuantConfig(quant_type=QuantType.INT, signed=True, narrow_range=False)
+_UINT = _INT.let(signed=False)
 
-# QuantLinear's default weight quantizer; its STATS scaling is not ported yet
-Int8WeightPerTensorFloat = _INT.let(
-    narrow_range=True, bit_width=8, scaling_impl=ScalingImplType.STATS,
-    scaling_stats_op=StatsOp.MAX, scaling_min_val=1e-10)
-
-Int8ActPerTensorFloat = _INT.let(
-    bit_width=8, scaling_impl=ScalingImplType.PARAMETER_FROM_STATS,
+_MAX_STATS = dict(scaling_impl=ScalingImplType.STATS,
+                  scaling_stats_op=StatsOp.MAX, scaling_min_val=1e-10)
+_PARAM_FROM_PERCENTILE = dict(
+    scaling_impl=ScalingImplType.PARAMETER_FROM_STATS,
     scaling_stats_op=StatsOp.PERCENTILE, high_percentile_q=99.999,
     collect_stats_steps=300, scaling_min_val=1e-10)
+
+Int8WeightPerTensorFloat = _INT.let(narrow_range=True, bit_width=8, **_MAX_STATS)
+
+Int8ActPerTensorFloat = _INT.let(bit_width=8, **_PARAM_FROM_PERCENTILE)
+Uint8ActPerTensorFloat = _UINT.let(bit_width=8, **_PARAM_FROM_PERCENTILE)
 
 NoneWeightQuant = QuantConfig(quant_type=QuantType.NONE)
 NoneActQuant = QuantConfig(quant_type=QuantType.NONE)

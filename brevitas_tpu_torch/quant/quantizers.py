@@ -1,10 +1,12 @@
 """Quantizer modules — the stateful resolution of a QuantConfig (port of
 ``brevitas_tpu/quant/quantizers.py``).
 
-Ported: CONST bit-width; CONST and two-phase PARAMETER_FROM_STATS scaling
+Ported: CONST bit-width; CONST scaling, STATS scaling of weights
+(``StatsScaling``) and two-phase PARAMETER_FROM_STATS scaling of activations
 (``ParameterFromRuntimeStatsScaling``); ZERO zero-point; quant delay; the
-INT/NONE weight and activation quantizers (per-tensor) and the NONE bias
-quantizer. Configs that need anything else raise ``NotImplementedError``.
+INT/NONE weight and activation quantizers, signed or unsigned, per-tensor;
+and the NONE bias quantizer. Configs that need anything else raise
+``NotImplementedError``.
 
 The JAX package selects the two-phase scaler's branch with ``lax.cond`` on
 a carried counter so it stays inside one jitted step; PyTorch runs eagerly,
@@ -92,6 +94,21 @@ class ConstScaling(nn.Module):
         return self.rc.forward(self.stored)
 
 
+class StatsScaling(nn.Module):
+    """Stateless scale from the current statistics of the weight: the
+    default weight path, whose gradients flow through the stats op."""
+
+    def __init__(self, cfg: QuantConfig, stats_fn, bshape: Tuple[int, ...] = ()):
+        super().__init__()
+        self.rc = _RestrictClamp(cfg)
+        self.stats_fn = stats_fn
+        self.bshape = bshape
+
+    def forward(self, stats_input: torch.Tensor) -> torch.Tensor:
+        stats = _expand(self.stats_fn(stats_input), self.bshape)
+        return self.rc.forward(self.rc.preprocess_runtime(stats))
+
+
 def _momentum_update(buf: torch.Tensor, update: torch.Tensor,
                      momentum: Optional[float], counter: int) -> torch.Tensor:
     """EMA, or the cumulative running mean when ``momentum`` is None."""
@@ -129,12 +146,13 @@ class ParameterFromRuntimeStatsScaling(nn.Module):
         return abs_binary_sign_grad(self.rc.forward(self.value))
 
     def forward(self, stats_input: Optional[torch.Tensor]) -> torch.Tensor:
-        c = int(self.counter)
         if not self.training:
-            if c <= self.steps:
-                return abs_binary_sign_grad(
-                    self.rc.forward(self.rc.preprocess_runtime(self.buffer)))
-            return self._from_param()
+            # the branch stays on the device: reading the counter on the host
+            # would wait for the card at every call of a served model
+            from_buffer = abs_binary_sign_grad(
+                self.rc.forward(self.rc.preprocess_runtime(self.buffer)))
+            return torch.where(self.counter <= self.steps, from_buffer, self._from_param())
+        c = int(self.counter)
         if c > self.steps:
             return self._from_param()
         stats = _expand(self.stats_fn(stats_input), self.bshape)
@@ -153,16 +171,19 @@ class ParameterFromRuntimeStatsScaling(nn.Module):
 
 def build_scaling(cfg: QuantConfig, bshape: Tuple[int, ...],
                   init_stats_input: Optional[torch.Tensor] = None) -> nn.Module:
-    """Resolve ScalingImplType into a scaling module. Ported: CONST, and
-    PARAMETER_FROM_STATS collected at run time."""
+    """Resolve ScalingImplType into a scaling module. Ported: CONST, STATS
+    of a parameter (``init_stats_input`` given) and PARAMETER_FROM_STATS
+    collected at run time."""
     impl = ScalingImplType(cfg.scaling_impl)
     if impl == ScalingImplType.CONST:
         if cfg.scaling_const is None:
             raise ValueError("CONST scaling requires scaling_const")
         return ConstScaling(cfg, cfg.scaling_const, bshape)
+    stats_fn = S.stats_fn(cfg.scaling_stats_op,
+                          high_percentile_q=cfg.high_percentile_q)
+    if impl == ScalingImplType.STATS and init_stats_input is not None:
+        return StatsScaling(cfg, stats_fn, bshape)
     if impl == ScalingImplType.PARAMETER_FROM_STATS and init_stats_input is None:
-        stats_fn = S.stats_fn(cfg.scaling_stats_op,
-                              high_percentile_q=cfg.high_percentile_q)
         return ParameterFromRuntimeStatsScaling(cfg, stats_fn, bshape)
     raise NotImplementedError(f"scaling {impl.value} is not ported yet")
 

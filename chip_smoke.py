@@ -10,25 +10,50 @@ Phases; any failure exits non-zero and prints no result:
 1. build   - compile every CUDA kernel under brevitas_tpu_torch/csrc (one
              nvcc per source, all at once) and print the time and ptxas report.
 2. card    - the card's name and power limit, as nvidia-smi reports them.
-3. kernels - each kernel at the slice's shapes (M in {1, 128, 1024}, (K, N) in
-             {(784, 1024), (1024, 1024), (1024, 10)}) on random full-range
-             codes, held against its plain PyTorch version on the card: int8
-             bit for bit, w4a16 within 1e-5 * sum|bf16(x)||w| * |w_scale|.
-             Median times (CUDA events) of the kernel, the plain version and one
-             library call, beside the least time the card could take.
-4. serve   - examples.serve.main at LFC's full widths (512 requests, batch
+3. kernels - the GEMM kernels at the LFC shapes (M in {1, 128, 1024}, (K, N) in
+             {(784, 1024), (1024, 1024), (1024, 10)}) and int8_matmul at the
+             Llama shapes (M in {4096, 16}, the four (K, N) of a block and the
+             head) on random full-range codes, held against their plain
+             PyTorch versions on the card: int8 bit for bit, w4a16 within
+             1e-5 * sum|bf16(x)||w| * |w_scale|. Median times (CUDA events) of
+             the kernel, the plain version and one library call, beside the
+             least time the card could take.
+4. attn    - int8_attention at (BH, T, D) = (128, 512, 64) causal and a ragged
+             grouped-query shape; int4kv_decode_attention at (BH, l_half, D) =
+             (256, 512, 64) with pos in {63, 0, 511, 1023}. Held to the plain
+             versions code by code: probability codes differ by at most one,
+             in at most 1e-4 of them; the output is exactly the PV product of
+             the kernel's own codes, and within (row flips) * 128 * p_scale *
+             v_scale of the plain one. Times as above; the library point is
+             bf16 scaled_dot_product_attention, which is not the same function.
+5. serve   - examples.serve.main at LFC's full widths (512 requests, batch
              128); int8_matmul must launch 4 times per batch plus the warm-up
              batch. One batch is compared with a CPU copy of the served model,
              which takes the plain path.
-5. lfc     - LFC 4-bit (w4a16 twins) and LFC 8-bit (carried-grid int8 twins)
+6. lfc     - LFC 4-bit (w4a16 twins) and LFC 8-bit (carried-grid int8 twins)
              calibrated, converted and served at batch 1024; 4 launches each,
              compared with CPU copies.
-6. report  - one {"kernels": [...]} line; the last line is
+7. llama_prefill - the repo's Llama (vocab 2000, dim 1024, depth 6, 16 heads;
+             random weights from seed 0) calibrated by one train-mode forward,
+             converted, and served a causal 8 x 512 prefill: 6 int8_attention
+             and 43 int8_matmul launches per forward. Each attention twin of a
+             CPU copy, fed the card's input, and the logits of one sequence
+             are compared with the card's.
+8. llama_decode - 64 greedy decode steps at batch 16 against a 1024-position
+             cache, int8 KV and int4-packed KV: 43 int8_matmul launches a
+             step, and 6 int4kv_decode_attention launches a packed step. The
+             first 16 steps of 2 sequences are compared with a CPU copy fed
+             the same tokens.
+9. report  - one {"kernels": [...]} line; the last line is
              {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The comparison with a CPU copy is made layer by layer, each serving layer of
-the copy fed the card's input to that layer (int8 layers must match exactly,
-w4a16 layers within the tolerance above), and end to end on the logits.
+the copy fed the card's input to that layer (int8 GEMM layers must match
+exactly, w4a16 layers within the tolerance above, attention layers in at
+least 99 % of their token rows: a probability code that flips at a .5 tie
+changes its own row), and end to end on the logits (LFC: reported; Llama:
+argmax agreement of at least 99 % and max |diff| within 5 % of the largest
+logit, since a flipped code feeds the later positions and layers).
 """
 
 import copy
@@ -147,70 +172,200 @@ def phase_kernels(dev, peaks):
     print("[kernels] kernel M K N | kernel_ms plain_ms library_ms bound_ms "
           "bound_by | max_abs_err | call_ms (device times; call_ms includes the "
           "host's launch overhead)")
-    for m in SHAPES_M:
-        for k, n in SHAPES_KN:
-            # int8: the serving path passes a bias and no activation
-            x = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
-            w = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
-            xs = torch.rand((), generator=g, device=dev) * 0.05 + 1e-3
-            ws = torch.rand(n, generator=g, device=dev) * 0.05 + 1e-3
-            b = torch.randn(n, generator=g, device=dev)
-            for act in (None, "relu"):
-                got = int8_matmul(x, w, xs, ws, b, act=act)
-                want = int8_matmul_reference(x, w, xs, ws, b, act=act)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"int8_matmul differs from its plain version at {(m, k, n)} "
-                        f"act={act}: max {float((got - want).abs().max())}")
-            err = float((got - want).abs().max())
-            t_k = cuda_ms(lambda: int8_matmul(x, w, xs, ws, b))
-            t_call = cuda_ms(lambda: int8_matmul(x, w, xs, ws, b), device_only=False)
-            t_p = cuda_ms(lambda: int8_matmul_reference(x, w, xs, ws, b))
-            if m > 16 and k % 8 == 0 and n % 8 == 0:
-                t_l = cuda_ms(lambda: torch._int_mm(x, w).to(torch.float32) * (xs * ws) + b)
-                lib = f"{t_l:.4f}"
-            else:
-                t_l, lib = None, "n/a(_int_mm needs M>16, K%8=0, N%8=0)"
-            nbytes = m * k + k * n + 4 + 8 * n + 4 * m * n
-            t_b, by = bound(nbytes, 2.0 * m * n * k, bw, int8_peak)
-            rows.append(dict(kernel="int8_matmul", m=m, k=k, n=n, ms=t_k, plain_ms=t_p,
-                             library_ms=t_l, bound_ms=t_b, bound_by=by, err=err,
-                             call_ms=t_call))
-            print(f"[kernels] int8_matmul {m} {k} {n} | {t_k:.4f} {t_p:.4f} {lib} "
-                  f"{t_b:.3g} {by} | {err} | call {t_call:.4f}")
+    shapes = ([(m, k, n) for m in SHAPES_M for k, n in SHAPES_KN]
+              + [(m, k, n) for m in LLAMA_M for k, n in LLAMA_KN])
+    for m, k, n in shapes:
+        llama = (k, n) in LLAMA_KN and m in LLAMA_M
+        # int8: the serving path passes a bias and no activation
+        x = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        w = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        xs = torch.rand((), generator=g, device=dev) * 0.05 + 1e-3
+        ws = torch.rand(n, generator=g, device=dev) * 0.05 + 1e-3
+        b = torch.randn(n, generator=g, device=dev)
+        for act in (None, "relu"):
+            got = int8_matmul(x, w, xs, ws, b, act=act)
+            want = int8_matmul_reference(x, w, xs, ws, b, act=act)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"int8_matmul differs from its plain version at {(m, k, n)} "
+                    f"act={act}: max {float((got - want).abs().max())}")
+        err = float((got - want).abs().max())
+        t_k = cuda_ms(lambda: int8_matmul(x, w, xs, ws, b))
+        t_call = cuda_ms(lambda: int8_matmul(x, w, xs, ws, b), device_only=False)
+        t_p = cuda_ms(lambda: int8_matmul_reference(x, w, xs, ws, b))
+        if m > 16 and k % 8 == 0 and n % 8 == 0:
+            t_l = cuda_ms(lambda: torch._int_mm(x, w).to(torch.float32) * (xs * ws) + b)
+            lib = f"{t_l:.4f}"
+        else:
+            t_l, lib = None, "n/a(_int_mm needs M>16, K%8=0, N%8=0)"
+        nbytes = m * k + k * n + 4 + 8 * n + 4 * m * n
+        t_b, by = bound(nbytes, 2.0 * m * n * k, bw, int8_peak)
+        rows.append(dict(kernel="int8_matmul", m=m, k=k, n=n, ms=t_k, plain_ms=t_p,
+                         library_ms=t_l, bound_ms=t_b, bound_by=by, err=err,
+                         call_ms=t_call))
+        print(f"[kernels] int8_matmul {m} {k} {n} | {t_k:.4f} {t_p:.4f} {lib} "
+              f"{t_b:.3g} {by} | {err} | call {t_call:.4f}")
+        if llama:  # Llama has no w4a16 layer
+            continue
 
-            # w4a16: LFC's linears have no bias
-            xf = torch.randn((m, k), generator=g, device=dev) * 3
-            wp = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev,
-                               dtype=torch.int8)
-            ws4 = torch.rand(n, generator=g, device=dev) * 0.2 + 0.01
-            tol = w4a16_tolerance(xf, wp, ws4)
-            for bias, act in ((None, None), (b, "relu")):
-                got = int4_weight_only_matmul(xf, wp, ws4, bias, act=act)
-                want = int4_weight_only_matmul_reference(xf, wp, ws4, bias, act=act)
-                torch.cuda.synchronize()
-                if not bool(((got - want).abs() <= tol).all()):
-                    raise AssertionError(
-                        f"int4_weight_only_matmul outside tolerance at {(m, k, n)} "
-                        f"act={act}: max {float((got - want).abs().max())}")
-            got = int4_weight_only_matmul(xf, wp, ws4)
-            want = int4_weight_only_matmul_reference(xf, wp, ws4)
-            err = float((got - want).abs().max())
-            w_bf16 = unpack_int4_rows(wp).to(torch.bfloat16)
-            t_k = cuda_ms(lambda: int4_weight_only_matmul(xf, wp, ws4))
-            t_call = cuda_ms(lambda: int4_weight_only_matmul(xf, wp, ws4),
-                             device_only=False)
-            t_p = cuda_ms(lambda: int4_weight_only_matmul_reference(xf, wp, ws4))
-            t_l = cuda_ms(lambda: torch.matmul(xf.to(torch.bfloat16), w_bf16)
-                          .to(torch.float32) * ws4)
-            nbytes = 4 * m * k + (k // 2) * n + 4 * n + 4 * m * n
-            t_b, by = bound(nbytes, 2.0 * m * n * k, bw, bf16_peak)
-            rows.append(dict(kernel="int4_weight_only_matmul", m=m, k=k, n=n, ms=t_k,
-                             plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
-                             err=err, call_ms=t_call))
-            print(f"[kernels] int4_weight_only_matmul {m} {k} {n} | {t_k:.4f} "
-                  f"{t_p:.4f} {t_l:.4f} {t_b:.3g} {by} | {err:.3g} | call {t_call:.4f}")
+        # w4a16: LFC's linears have no bias
+        xf = torch.randn((m, k), generator=g, device=dev) * 3
+        wp = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev,
+                           dtype=torch.int8)
+        ws4 = torch.rand(n, generator=g, device=dev) * 0.2 + 0.01
+        tol = w4a16_tolerance(xf, wp, ws4)
+        for bias, act in ((None, None), (b, "relu")):
+            got = int4_weight_only_matmul(xf, wp, ws4, bias, act=act)
+            want = int4_weight_only_matmul_reference(xf, wp, ws4, bias, act=act)
+            torch.cuda.synchronize()
+            if not bool(((got - want).abs() <= tol).all()):
+                raise AssertionError(
+                    f"int4_weight_only_matmul outside tolerance at {(m, k, n)} "
+                    f"act={act}: max {float((got - want).abs().max())}")
+        got = int4_weight_only_matmul(xf, wp, ws4)
+        want = int4_weight_only_matmul_reference(xf, wp, ws4)
+        err = float((got - want).abs().max())
+        w_bf16 = unpack_int4_rows(wp).to(torch.bfloat16)
+        t_k = cuda_ms(lambda: int4_weight_only_matmul(xf, wp, ws4))
+        t_call = cuda_ms(lambda: int4_weight_only_matmul(xf, wp, ws4),
+                         device_only=False)
+        t_p = cuda_ms(lambda: int4_weight_only_matmul_reference(xf, wp, ws4))
+        t_l = cuda_ms(lambda: torch.matmul(xf.to(torch.bfloat16), w_bf16)
+                      .to(torch.float32) * ws4)
+        nbytes = 4 * m * k + (k // 2) * n + 4 * n + 4 * m * n
+        t_b, by = bound(nbytes, 2.0 * m * n * k, bw, bf16_peak)
+        rows.append(dict(kernel="int4_weight_only_matmul", m=m, k=k, n=n, ms=t_k,
+                         plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
+                         err=err, call_ms=t_call))
+        print(f"[kernels] int4_weight_only_matmul {m} {k} {n} | {t_k:.4f} "
+              f"{t_p:.4f} {t_l:.4f} {t_b:.3g} {by} | {err:.3g} | call {t_call:.4f}")
+    return rows
+
+
+# the repo's Llama configuration (bench.py's llama legs): about 80 M
+# parameters, head_dim 64, SwiGLU hidden 2752
+LLAMA_DIMS = dict(vocab_size=2000, dim=1024, depth=6, num_heads=16)
+LLAMA_HIDDEN = 2752
+PREFILL_BATCH, PREFILL_T = 8, 512
+DECODE_BATCH, DECODE_MAX_LEN, DECODE_STEPS = 16, 1024, 64
+DECODE_CHECK_STEPS, DECODE_CHECK_SEQS = 16, 2   # compared with a CPU copy
+# int8_matmul's (K, N) in one Llama forward: q/k/v/out, gate/up, down, head
+LLAMA_KN = [(1024, 1024), (1024, 2752), (2752, 1024), (1024, 2000)]
+LLAMA_KN_COUNT = {(1024, 1024): 24, (1024, 2752): 12, (2752, 1024): 6, (1024, 2000): 1}
+LLAMA_M = [PREFILL_BATCH * PREFILL_T, DECODE_BATCH]
+
+# attention kernels: prefill (BH, Tq, Tk, D, causal, kv_groups) and decode
+# (BH, l_half, D) at the given positions; the first rows are the main path's
+ATTN_SHAPES = [(128, 512, 512, 64, True, 1), (6, 77, 45, 40, True, 2)]
+DECODE_SHAPE = (256, 512, 64)
+DECODE_POS = [63, 0, 511, 1023]
+FLIP_SHARE = 1e-4   # codes may differ by one in at most this share of probabilities
+
+
+def check_codes(got_out, got_codes, want_out, want_codes, v_codes, pv_scale, what):
+    """Hold a kernel's attention output to its plain version's: the codes
+    differ by at most one, in at most FLIP_SHARE of the probabilities; the
+    kernel's output is exactly the PV product of its own codes; and each
+    output row differs from the plain one by at most (flips in the row) *
+    128 * p_scale * v_scale. Returns (flips, max |out diff|)."""
+    delta = got_codes.to(torch.int32) - want_codes.to(torch.int32)
+    flips = int((delta != 0).sum())
+    if int(delta.abs().max()) > 1 or flips > FLIP_SHARE * delta.numel():
+        raise AssertionError(f"{what}: codes differ by up to {int(delta.abs().max())}, "
+                             f"in {flips} of {delta.numel()}")
+    exact = torch.bmm(got_codes.double(), v_codes.double()).float() * pv_scale
+    if not torch.equal(got_out, exact):
+        raise AssertionError(f"{what}: output is not the PV product of its codes")
+    row_flips = (delta != 0).sum(-1, keepdim=True).float()
+    err = (got_out - want_out).abs()
+    if bool((err > row_flips * 128 * pv_scale * (1 + 1e-6)).any()):
+        raise AssertionError(f"{what}: output outside (row flips) x 128 x p_s x v_s")
+    return flips, float(err.max())
+
+
+def phase_attention_kernels(dev, peaks):
+    """Both attention kernels at the main path's shapes and a ragged one,
+    held against their plain versions code by code, and timed."""
+    import torch.nn.functional as F
+
+    from brevitas_tpu_torch.kernels import (
+        int4kv_decode_attention,
+        int4kv_decode_attention_reference,
+        int8_attention,
+        int8_attention_reference,
+        unpack_kv_halves,
+    )
+
+    bw, int8_peak, _ = peaks
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    print("[attn] kernel shape | kernel_ms plain_ms library_ms(bf16 SDPA, not the same "
+          "function) bound_ms bound_by | code flips, max_abs_err")
+    for bh, tq, tk, d, causal, groups in ATTN_SHAPES:
+        q = torch.randint(-127, 128, (bh, tq, d), generator=g, device=dev, dtype=torch.int8)
+        k = torch.randint(-127, 128, (bh // groups, tk, d), generator=g, device=dev,
+                          dtype=torch.int8)
+        v = torch.randint(-127, 128, (bh // groups, tk, d), generator=g, device=dev,
+                          dtype=torch.int8)
+        # scores of standard deviation ~3; probabilities up to 0.25 span the codes
+        qk = torch.tensor(3.0 / (127 ** 2 / 3 * d ** 0.5), device=dev)
+        ps, vs = torch.tensor(0.25 / 255, device=dev), torch.tensor(0.02, device=dev)
+        args = (qk, ps, vs, 255, causal, groups)
+        got, got_codes = int8_attention(q, k, v, *args, return_codes=True)
+        want, want_codes = int8_attention_reference(q, k, v, *args, return_codes=True)
+        torch.cuda.synchronize()
+        what = f"int8_attention {(bh, tq, tk, d)}"
+        flips, err = check_codes(got, got_codes, want, want_codes,
+                                 v.repeat_interleave(groups, 0), ps * vs, what)
+        t_k = cuda_ms(lambda: int8_attention(q, k, v, *args))
+        t_p = cuda_ms(lambda: int8_attention_reference(q, k, v, *args))
+        # (1, BH, T, D): the 4-D layout SDPA's fused kernels take
+        qb, kb, vb = (t.to(torch.bfloat16).repeat_interleave(
+            1 if t is q else groups, 0)[None] for t in (q, k, v))
+        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, is_causal=causal))
+        lims = (torch.arange(tq) + tk - tq + 1).clamp(0, tk)
+        pairs = int(torch.where(lims > 0, lims, tk).sum()) * bh if causal else bh * tq * tk
+        nbytes = bh * tq * d + 2 * (bh // groups) * tk * d + 4 * bh * tq * d + 12
+        t_b, by = bound(nbytes, 4.0 * pairs * d, bw, int8_peak)
+        rows.append(dict(kernel="int8_attention", shape=(bh, tq, tk, d), ms=t_k,
+                         plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
+                         err=err, flips=flips))
+        print(f"[attn] int8_attention {(bh, tq, tk, d)} causal={causal} groups={groups} | "
+              f"{t_k:.4f} {t_p:.4f} {t_l:.4f} {t_b:.4g} {by} | {flips} of "
+              f"{got_codes.numel()}, {err:.3g}")
+
+    bh, l_half, d = DECODE_SHAPE
+    q = torch.randint(-127, 128, (bh, 1, d), generator=g, device=dev, dtype=torch.int8)
+    kp = torch.randint(-128, 128, (bh, l_half, d), generator=g, device=dev, dtype=torch.int8)
+    vp = torch.randint(-128, 128, (bh, l_half, d), generator=g, device=dev, dtype=torch.int8)
+    # q codes ~ 73 and nibbles ~ 4.6 in standard deviation: scores of deviation ~3
+    q_s, k_s = torch.tensor(0.01, device=dev), torch.tensor(3.0 / (73 * 4.6 * 0.01), device=dev)
+    ps, vs = torch.tensor(0.25 / 255, device=dev), torch.tensor(0.1, device=dev)
+    k_full, v_full = unpack_kv_halves(kp), unpack_kv_halves(vp)
+    for pos in DECODE_POS:
+        args = (pos, q_s, k_s, vs, ps, d)
+        got, got_codes = int4kv_decode_attention(q, kp, vp, *args, return_codes=True)
+        want, want_codes = int4kv_decode_attention_reference(q, kp, vp, *args,
+                                                             return_codes=True)
+        torch.cuda.synchronize()
+        what = f"int4kv_decode_attention {(bh, l_half, d)} pos={pos}"
+        flips, err = check_codes(got, got_codes, want, want_codes, v_full, ps * vs, what)
+        t_k = cuda_ms(lambda: int4kv_decode_attention(q, kp, vp, *args))
+        t_p = cuda_ms(lambda: int4kv_decode_attention_reference(q, kp, vp, *args))
+        qb = q.to(torch.bfloat16)[None]
+        kb = k_full[None, :, :pos + 1].to(torch.bfloat16)
+        vb = v_full[None, :, :pos + 1].to(torch.bfloat16)
+        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb))
+        n_rows = min(l_half, pos + 1)
+        nbytes = bh * d + 2 * bh * n_rows * d + 4 * bh * d + 12
+        t_b, by = bound(nbytes, 4.0 * bh * (pos + 1) * d, bw, int8_peak)
+        rows.append(dict(kernel="int4kv_decode_attention", shape=(bh, l_half, d), pos=pos,
+                         ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
+                         err=err, flips=flips))
+        print(f"[attn] int4kv_decode_attention {(bh, l_half, d)} pos={pos} | {t_k:.4f} "
+              f"{t_p:.4f} {t_l:.4f} {t_b:.4g} {by} | {flips} of {got_codes.numel()}, "
+              f"{err:.3g}")
     return rows
 
 
@@ -270,41 +425,14 @@ def compare_with_cpu_copy(model, batch: np.ndarray, what: str) -> torch.Tensor:
     return logits
 
 
-def profile_batches(model, batch: np.ndarray, what: str, n: int = 5) -> None:
-    """Where one served batch's time goes: device time by kernel, from
-    torch.profiler over ``n`` batches (host copy in and out included), beside
-    the wall time per batch; the rest of the wall time the card is idle."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    x = torch.from_numpy(batch)
-    with torch.no_grad():
-        model(x.cuda()).cpu()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                model(x.cuda()).cpu()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    # device-side activities only (kernels, copies, memsets): the host ops
-    # that launched them carry the same time again
-    rows = [(e.key, e.self_device_time_total / 1e3 / n) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and not e.key.startswith("Activity Buffer")]
-    busy_ms = sum(t for _, t in rows)
-    top = ", ".join(f"{k[:40]} {t:.4f}" for k, t in sorted(rows, key=lambda r: -r[1])[:6])
-    print(f"[{what}] profile per batch of {batch.shape[0]}: device busy {busy_ms:.4f} ms "
-          f"of {wall_ms:.4f} ms wall under the profiler (idle share "
-          f"{1 - busy_ms / wall_ms:.3f}); top device ms: {top}")
-
-
 def phase_serve(dev):
     from brevitas_tpu_torch import graph as G
-    from brevitas_tpu_torch import kernels as K
     from brevitas_tpu_torch.examples import serve
 
-    K.int8_matmul.launches = K.int4_weight_only_matmul.launches = 0
+    _reset_launch_counts()
     out = serve.main(["--requests", "512", "--batch-size", str(SERVE_BATCH)])
-    n8, n4 = K.int8_matmul.launches, K.int4_weight_only_matmul.launches
+    counts = _launch_counts()
+    n8, n4 = counts["int8_matmul"], counts["int4_weight_only_matmul"]
     expected = 4 * (out["batches"] + 1)
     print(f"[serve] int8_matmul launches {n8} (expected {expected} = 4 x "
           f"({out['batches']} batches + 1 warm-up)), int4_weight_only_matmul {n4}")
@@ -314,13 +442,12 @@ def phase_serve(dev):
     G.convert_integer_inference(model)
     batch = np.random.default_rng(0).random((SERVE_BATCH, 28, 28, 1), dtype=np.float32)
     compare_with_cpu_copy(model, batch, "serve")
-    profile_batches(model, batch, "serve")
+    profile_batch(model, batch, "serve")
     return out, n8
 
 
 def phase_lfc(dev):
     from brevitas_tpu_torch import graph as G
-    from brevitas_tpu_torch import kernels as K
     from brevitas_tpu_torch.graph.convert_int import (
         Int8InferenceLinear,
         WeightOnlyInt4InferenceLinear,
@@ -341,20 +468,302 @@ def phase_lfc(dev):
         if n_twins != 4:
             raise AssertionError(f"lfc {bits}-bit: {n_twins} {twin.__name__} layers, not 4")
         batch = np.random.default_rng(2).random((LFC_BATCH, 28, 28, 1), dtype=np.float32)
-        K.int8_matmul.launches = K.int4_weight_only_matmul.launches = 0
+        _reset_launch_counts()
         with torch.no_grad():
             model(torch.from_numpy(batch).to(dev))
         torch.cuda.synchronize()
-        counts = {"int8_matmul": K.int8_matmul.launches,
-                  "int4_weight_only_matmul": K.int4_weight_only_matmul.launches}
+        counts = _launch_counts()
         print(f"[lfc] {bits}-bit batch {LFC_BATCH}: launches {counts}")
-        other = "int8_matmul" if kernel != "int8_matmul" else "int4_weight_only_matmul"
-        if counts[kernel] != 4 or counts[other] != 0:
+        if counts[kernel] != 4 or sum(counts.values()) != 4:
             raise AssertionError(f"lfc {bits}-bit: expected 4 {kernel} launches")
         launches[kernel] = counts[kernel]
         compare_with_cpu_copy(model, batch, f"lfc{bits}")
-        profile_batches(model, batch, f"lfc{bits}")
+        profile_batch(model, batch, f"lfc{bits}")
     return launches
+
+
+def _launch_counts():
+    from brevitas_tpu_torch import kernels as K
+
+    return {"int8_matmul": K.int8_matmul.launches,
+            "int4_weight_only_matmul": K.int4_weight_only_matmul.launches,
+            "int8_attention": K.int8_attention.launches,
+            "int4kv_decode_attention": K.int4kv_decode_attention.launches}
+
+
+def _reset_launch_counts():
+    from brevitas_tpu_torch import kernels as K
+
+    for name in _launch_counts():
+        getattr(K, name).launches = 0
+
+
+def build_llama(dev, calib_ids: np.ndarray, kv_bit_width=None):
+    """bench.py's recipe: random weights from seed 0, one train-mode forward
+    to calibrate the activation grids, eval, convert_integer_inference."""
+    from brevitas_tpu_torch import config
+    from brevitas_tpu_torch import graph as G
+    from brevitas_tpu_torch.graph.convert_int import Int8InferenceAttention, Int8InferenceLinear
+    from brevitas_tpu_torch.models import QuantLlama
+
+    model = QuantLlama(bit_width=8, kv_bit_width=kv_bit_width,
+                       generator=torch.Generator().manual_seed(0), device=dev, **LLAMA_DIMS)
+    with torch.no_grad():
+        model(torch.from_numpy(calib_ids).to(dev))
+    model.eval()
+    policy = config.INT4_KV_CACHE
+    if kv_bit_width:
+        config.INT4_KV_CACHE = "1"  # the packed cache, as bench.py's llama_decode4 leg sets it
+    try:
+        G.convert_integer_inference(model)
+    finally:
+        config.INT4_KV_CACHE = policy
+    n_attn = sum(isinstance(m, Int8InferenceAttention) for m in model.modules())
+    n_lin = sum(isinstance(m, Int8InferenceLinear) for m in model.modules())
+    if (n_attn, n_lin) != (6, 43):
+        raise AssertionError(f"llama: {n_attn} attention and {n_lin} linear twins, "
+                             "expected 6 and 43")
+    packed = {m.kv_int4 for m in model.modules() if isinstance(m, Int8InferenceAttention)}
+    if packed != {bool(kv_bit_width)}:
+        raise AssertionError(f"llama: packed KV cache {packed}, expected {bool(kv_bit_width)}")
+    return model
+
+
+class AttentionTap:
+    """Records the inputs and outputs of every attention twin of a model on
+    the card (first ``n`` sequences, in call order, prefill or decode), or
+    replays them into a CPU copy: there each twin's input must equal the
+    card's bit for bit, its own output is held to the card's row by row (a
+    row: one token's vector; a probability code that flips at a .5 tie
+    changes only its own row), and the card's output is passed on, so the
+    rest of the copy sees exactly what the card saw."""
+
+    def __init__(self, model, n: int, replay=None):
+        from brevitas_tpu_torch.graph.convert_int import Int8InferenceAttention
+
+        self.n, self.replay, self.record = n, replay, []
+        self.rows = self.differ = 0
+        self.max_diff = 0.0
+        self.mods = [(name, mod) for name, mod in model.named_modules()
+                     if isinstance(mod, Int8InferenceAttention)]
+        for name, mod in self.mods:
+            mod.forward = self._wrap(mod.forward, name, False)
+            mod.decode_step = self._wrap(mod.decode_step, name, True)
+
+    def _wrap(self, fn, name, decode):
+        def call(x, *args, **kw):
+            result = fn(x, *args, **kw)
+            y = result[0] if decode else result
+            if self.replay is None:
+                self.record.append((name, x[:self.n].cpu(), y[:self.n].cpu()))
+                return result
+            want_name, want_x, want_y = self.replay[len(self.record)]
+            self.record.append(name)
+            if want_name != name or not torch.equal(x, want_x):
+                raise AssertionError(f"{name}: the CPU copy's input differs from the card's")
+            self.rows += y.numel() // y.shape[-1]
+            self.differ += int((y != want_y).any(-1).sum())
+            self.max_diff = max(self.max_diff, float((y - want_y).abs().max()))
+            return (want_y, *result[1:]) if decode else want_y
+        return call
+
+    def detach(self):
+        for _, mod in self.mods:
+            del mod.forward, mod.decode_step
+
+
+def check_replay(tap: AttentionTap, got_logits, want_logits, what: str) -> None:
+    """Attention rows of the CPU copy against the card's (at most 1 % may
+    differ), and the logits of the copy fed the card's attention outputs:
+    bit for bit."""
+    print(f"[{what}] attention twins of the CPU copy fed the card's inputs: "
+          f"{tap.differ} of {tap.rows} rows differ, max |diff| {tap.max_diff:.3g}")
+    if tap.differ > 0.01 * tap.rows:
+        raise AssertionError(f"{what}: {tap.differ} attention rows differ from the CPU copy")
+    if not torch.equal(got_logits, want_logits):
+        raise AssertionError(f"{what}: logits of the CPU copy fed the card's attention "
+                             "outputs differ from the card's")
+    print(f"[{what}] logits of the CPU copy fed the card's attention outputs: bit for bit")
+
+
+def compare_logits(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
+    """Free-running CPU copy: a flipped probability code feeds every later
+    position and layer, and random weights leave the logits close together
+    (one flip in block 1 moved 4.5 % of the argmaxes in a first run), so the
+    bound is loose: argmax agreement of at least 90 % and max |diff| within
+    10 % of the largest logit."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: logits not finite")
+    diff = float((got - want).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    span = float(want.abs().max())
+    print(f"[{what}] logits card vs free-running CPU copy: max |diff| {diff:.3g} of span "
+          f"{span:.3g}, bit for bit {torch.equal(got, want)}, argmax agreement {agree}")
+    if agree < 0.9 or diff > 0.1 * span:
+        raise AssertionError(f"{what}: logits disagree with the CPU copy")
+
+
+def profile_steps(fn, what: str, unit: str, n: int = 3) -> dict:
+    """Device busy time by kernel from torch.profiler over ``n`` calls of
+    ``fn`` (each ending in a synchronize), beside their wall time; the rest
+    of the wall time the card is idle."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        fn()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    rows = [(e.key, e.self_device_time_total / 1e3 / n) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("Activity Buffer")]
+    busy_ms = sum(t for _, t in rows)
+    top = sorted(rows, key=lambda r: -r[1])[:8]
+    print(f"[{what}] profile per {unit}: device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms "
+          f"wall under the profiler (idle share {1 - busy_ms / wall_ms:.3f}); top device ms: "
+          + ", ".join(f"{k[:48]} {t:.4f}" for k, t in top))
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "top": [(k[:64], t) for k, t in top]}
+
+
+def profile_batch(model, batch: np.ndarray, what: str) -> None:
+    """Where one served batch's time goes, host copy in and out included."""
+    x = torch.from_numpy(batch)
+    profile_steps(lambda: model(x.cuda()).cpu(), what, f"batch of {batch.shape[0]}", n=5)
+
+
+def phase_llama_prefill(dev) -> dict:
+    """Full-width Llama prefill, 8 x 512 causal, on the converted model."""
+    from brevitas_tpu_torch.graph.convert_int import Int8InferenceAttention
+
+    vocab = LLAMA_DIMS["vocab_size"]
+    calib = np.random.default_rng(0).integers(0, vocab, (PREFILL_BATCH, PREFILL_T))
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, vocab, (PREFILL_BATCH, PREFILL_T))).to(dev)
+    model = build_llama(dev, calib)
+    tap = AttentionTap(model, 1)
+    _reset_launch_counts()
+    with torch.no_grad():
+        logits = model(ids)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    tap.detach()
+    print(f"[llama_prefill] {PREFILL_BATCH} x {PREFILL_T} causal: launches {counts}")
+    if counts["int8_attention"] != 6 or counts["int8_matmul"] != 43:
+        raise AssertionError("llama_prefill: expected 6 int8_attention and 43 int8_matmul "
+                             "launches per forward")
+    if tuple(logits.shape) != (PREFILL_BATCH, PREFILL_T, vocab):
+        raise AssertionError(f"llama_prefill: logits of shape {tuple(logits.shape)}")
+
+    cpu_model = copy.deepcopy(model).to("cpu")
+    with torch.no_grad():
+        compare_logits(logits[:1].cpu(), cpu_model(ids[:1].cpu()), "llama_prefill")
+        replay = AttentionTap(cpu_model, 1, replay=tap.record)
+        check_replay(replay, cpu_model(ids[:1].cpu()), logits[:1].cpu(), "llama_prefill")
+    del cpu_model
+
+    def forward():
+        model(ids)
+        torch.cuda.synchronize()
+
+    with torch.no_grad():
+        forward()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            forward()
+            times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    out = {"ms_per_forward": ms, "sequences_per_s": PREFILL_BATCH / ms * 1e3,
+           "tokens_per_s": PREFILL_BATCH * PREFILL_T / ms * 1e3, "launches": counts}
+    print(f"[llama_prefill] {ms:.3f} ms per forward (median of 5, host clock with "
+          f"synchronize): {out['sequences_per_s']:.1f} sequences/s, "
+          f"{out['tokens_per_s']:.0f} tokens/s")
+    out["profile"] = profile_steps(forward, "llama_prefill", "forward")
+    return out
+
+
+def greedy_decode(model, first: torch.Tensor, steps: int):
+    """``steps`` greedy decode steps from the tokens ``first`` (B, 1) at
+    position 0 on a fresh cache of DECODE_MAX_LEN; returns the tokens fed
+    (steps, B, 1) and the logits (steps, B, vocab)."""
+    caches = model.init_decode_caches(first.shape[0], DECODE_MAX_LEN)
+    tok, fed, logits = first, [], []
+    for pos in range(steps):
+        fed.append(tok)
+        out, caches = model.decode_step(tok, caches, pos)
+        logits.append(out[:, 0])
+        tok = out.argmax(-1)
+    return torch.stack(fed), torch.stack(logits)
+
+
+def phase_llama_decode(dev, kv_bit_width) -> dict:
+    """64 greedy decode steps at batch 16 against a 1024-position cache:
+    int8 KV (kv_bit_width None) or int4-packed KV (kv_bit_width 4)."""
+    what = "llama_decode_int4kv" if kv_bit_width else "llama_decode_int8kv"
+    vocab = LLAMA_DIMS["vocab_size"]
+    rng = np.random.default_rng(0)
+    model = build_llama(dev, rng.integers(0, vocab, (DECODE_BATCH, 64)), kv_bit_width)
+    first = torch.from_numpy(rng.integers(0, vocab, (DECODE_BATCH, 1))).to(dev)
+    with torch.no_grad():
+        greedy_decode(model, first, DECODE_STEPS)  # warm-up
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        fed, logits = greedy_decode(model, first, DECODE_STEPS)
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+    counts = _launch_counts()
+    attn = counts["int4kv_decode_attention"]
+    print(f"[{what}] {DECODE_STEPS} steps x batch {DECODE_BATCH}, cache {DECODE_MAX_LEN}: "
+          f"launches {counts}")
+    if (counts["int8_matmul"] != 43 * DECODE_STEPS
+            or attn != (6 * DECODE_STEPS if kv_bit_width else 0)
+            or counts["int8_attention"] != 0):
+        raise AssertionError(f"{what}: expected 43 int8_matmul and "
+                             f"{6 if kv_bit_width else 0} int4kv_decode_attention "
+                             "launches per step")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{what}: logits not finite")
+
+    # the check: the first steps again on a fresh cache, the attention twins
+    # recorded, then a CPU copy fed the same tokens, free-running and with
+    # the card's attention outputs replayed
+    n = DECODE_CHECK_SEQS
+    tap = AttentionTap(model, n)
+    with torch.no_grad():
+        fed, logits = greedy_decode(model, first, DECODE_CHECK_STEPS)
+    tap.detach()
+    cpu_model = copy.deepcopy(model).to("cpu")
+
+    def cpu_decode():
+        caches, out = cpu_model.init_decode_caches(n, DECODE_MAX_LEN), []
+        for pos in range(DECODE_CHECK_STEPS):
+            y, caches = cpu_model.decode_step(fed[pos, :n].cpu(), caches, pos)
+            out.append(y[:, 0])
+        return torch.stack(out)
+
+    with torch.no_grad():
+        compare_logits(logits[:, :n].cpu(), cpu_decode(), what)
+        replay = AttentionTap(cpu_model, n, replay=tap.record)
+        check_replay(replay, cpu_decode(), logits[:, :n].cpu(), what)
+    del cpu_model
+
+    out = {"ms_per_step": total_ms / DECODE_STEPS,
+           "tokens_per_s": DECODE_BATCH * DECODE_STEPS / total_ms * 1e3, "launches": counts}
+    print(f"[{what}] {out['ms_per_step']:.3f} ms per step, {out['tokens_per_s']:.0f} "
+          "tokens/s (host clock over the steps, synchronized at the end)")
+
+    def eight_steps():
+        greedy_decode(model, first, 8)
+        torch.cuda.synchronize()
+
+    prof = profile_steps(eight_steps, what, "8 steps")
+    out["profile"] = prof
+    return out
 
 
 def kernel_summary(rows, name, m, launches, source, replaces, library_note=None):
@@ -380,6 +789,32 @@ def kernel_summary(rows, name, m, launches, source, replaces, library_note=None)
     return entry
 
 
+def llama_gemm_sums(rows, m: int) -> dict:
+    """int8_matmul's times over one Llama forward (prefill, M = 4096) or one
+    decode step (M = 16): its 43 launches at their shapes."""
+    per_kn = {(r["k"], r["n"]): r for r in rows if r["kernel"] == "int8_matmul"
+              and r["m"] == m}
+    sums = {key: sum(per_kn[kn][key] * c for kn, c in LLAMA_KN_COUNT.items())
+            for key in ("ms", "plain_ms", "bound_ms")}
+    libs = [per_kn[kn]["library_ms"] for kn in LLAMA_KN_COUNT]
+    sums["library_ms"] = None if None in libs else sum(
+        per_kn[kn]["library_ms"] * c for kn, c in LLAMA_KN_COUNT.items())
+    return sums
+
+
+def attention_summary(row, name, launches, source, replaces):
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "max_abs_err": row["max_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": None,
+        "library_note": "no PyTorch call computes this function (int8 scores, a "
+                        "requantized probability grid); sdpa_bf16_ms is a yardstick only",
+        "sdpa_bf16_ms": row["library_ms"],
+        "shape": row["shape"], "pos": row.get("pos"), "code_flips": row["flips_total"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a card",
@@ -397,19 +832,47 @@ def main() -> int:
     print(f"[kernels] bounds from the {sheet} data sheet: {peaks[0] / 1e12} TB/s, "
           f"{peaks[1] / 1e12} int8 TOP/s, {peaks[2] / 1e12} bf16 TFLOP/s")
     rows = phase_kernels(dev, peaks)
+    attn_rows = phase_attention_kernels(dev, peaks)
     serve_out, serve_int8 = phase_serve(dev)
     lfc_launches = phase_lfc(dev)
+    prefill = phase_llama_prefill(dev)
+    decode = {"int8kv": phase_llama_decode(dev, None), "int4kv": phase_llama_decode(dev, 4)}
+
+    int8_by_path = {"serve": serve_int8, "lfc8": lfc_launches["int8_matmul"],
+                    "llama_prefill": prefill["launches"]["int8_matmul"],
+                    **{f"llama_decode_{k}": v["launches"]["int8_matmul"]
+                       for k, v in decode.items()}}
+    int8_entry = kernel_summary(rows, "int8_matmul", SERVE_BATCH, sum(int8_by_path.values()),
+                                "brevitas_tpu_torch/csrc/int8_matmul.cu",
+                                "brevitas_tpu/kernels/int_matmul.py:90",
+                                "torch._int_mm needs N % 8 == 0; LFC's head has N = 10")
+    int8_entry.update(launches_by_path=int8_by_path,
+                      llama_prefill_forward=llama_gemm_sums(rows, PREFILL_BATCH * PREFILL_T),
+                      llama_decode_step=llama_gemm_sums(rows, DECODE_BATCH))
+    for r in attn_rows:
+        r["flips_total"] = sum(x["flips"] for x in attn_rows if x["kernel"] == r["kernel"])
+        r["max_err"] = max(x["err"] for x in attn_rows if x["kernel"] == r["kernel"])
     report = {"kernels": [
-        kernel_summary(rows, "int8_matmul", SERVE_BATCH,
-                       serve_int8 + lfc_launches["int8_matmul"],
-                       "brevitas_tpu_torch/csrc/int8_matmul.cu",
-                       "brevitas_tpu/kernels/int_matmul.py:90",
-                       "torch._int_mm needs N % 8 == 0; LFC's head has N = 10"),
+        int8_entry,
         kernel_summary(rows, "int4_weight_only_matmul", LFC_BATCH,
                        lfc_launches["int4_weight_only_matmul"],
                        "brevitas_tpu_torch/csrc/int4_weight_only_matmul.cu",
                        "brevitas_tpu/kernels/int4.py:229"),
-    ], "serve": serve_out, "seconds": time.perf_counter() - t0}
+        attention_summary(attn_rows[0], "int8_attention",
+                          prefill["launches"]["int8_attention"],
+                          "brevitas_tpu_torch/csrc/int8_attention.cu",
+                          "brevitas_tpu/kernels/int8_attention.py:98"),
+        attention_summary(next(r for r in attn_rows if r.get("pos") == DECODE_STEPS - 1),
+                          "int4kv_decode_attention",
+                          decode["int4kv"]["launches"]["int4kv_decode_attention"],
+                          "brevitas_tpu_torch/csrc/int4kv_decode_attention.cu",
+                          "brevitas_tpu/kernels/int8_attention.py:324"),
+    ], "serve": serve_out,
+        "llama_prefill": {k: v for k, v in prefill.items() if k != "profile"},
+        "llama_decode": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
+                         for k, v in decode.items()},
+        "seconds": time.perf_counter() - t0}
+    print(f"[done] {report['seconds']:.1f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

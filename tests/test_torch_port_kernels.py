@@ -20,6 +20,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from brevitas_tpu.kernels import int4 as jax_int4
 from brevitas_tpu.kernels import int_matmul as jax_int_matmul
+from brevitas_tpu_torch.csrc import build
 from brevitas_tpu_torch.kernels import (
     int4_weight_only_matmul,
     int4_weight_only_matmul_reference,
@@ -158,3 +159,18 @@ def test_port_imports_no_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+
+
+LIBRARY_MARKS = ("cublas", "cudnn", "cutlass", "torch/", "ATen", "c10/", "flash")
+
+
+@pytest.mark.parametrize("name", sorted(build.SOURCES))
+def test_kernel_sources_are_hand_written(name):
+    """Every kernel is a hand-written sm_90a source in the repo with a plain
+    C launcher: no library GEMM or attention, no PyTorch headers."""
+    src = build.SOURCES[name].read_text()
+    includes = [ln for ln in src.splitlines() if ln.startswith("#include")]
+    assert not [ln for ln in includes if any(m in ln for m in LIBRARY_MARKS)], includes
+    assert f'extern "C" int {name}_launch(' in src
+    assert "compute_90a" in " ".join(build.NVCC_FLAGS)
+    assert "--use_fast_math" not in build.NVCC_FLAGS
