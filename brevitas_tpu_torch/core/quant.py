@@ -46,6 +46,12 @@ def int_scaling(bit_width, *, signed: bool, narrow_range: bool):
 
 def rescaling_scale(threshold: torch.Tensor, bit_width, *, signed: bool,
                     narrow_range: bool) -> torch.Tensor:
-    """scale = float threshold / integer threshold."""
-    return threshold / int_scaling(bit_width, signed=signed,
-                                   narrow_range=narrow_range)
+    """scale = float threshold / integer threshold. The integer threshold
+    divides as a tensor filled on the threshold's device: PyTorch on CUDA
+    multiplies by the reciprocal of a Python-number divisor, which differs
+    from the division by an ulp about half the time (for 7 or 127), so the
+    card and a CPU copy would compute different scales. A fill, unlike a
+    tensor made from the Python number, copies nothing from the host and so
+    does not wait for the card."""
+    divisor = int_scaling(bit_width, signed=signed, narrow_range=narrow_range)
+    return threshold / torch.full_like(threshold, divisor)

@@ -1,8 +1,9 @@
 """Statistics ops for scale estimation (port of
 ``brevitas_tpu/core/stats.py``).
 
-Inputs are viewed as 2-D ``(groups, elems)``; each op reduces the last axis
-and returns ``(groups,)``. Ported: MAX (``abs_max``) and PERCENTILE
+Inputs are viewed as 2-D ``(groups, elems)`` (one group for per-tensor
+scaling, one per output channel for per-channel scaling); each op reduces
+the last axis and returns ``(groups,)``. Ported: MAX (``abs_max``) and PERCENTILE
 (``abs_percentile``).
 """
 

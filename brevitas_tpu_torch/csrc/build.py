@@ -26,6 +26,7 @@ BUILD_DIR = HERE / "build"
 SOURCES = {
     "int8_matmul": HERE / "int8_matmul.cu",
     "int4_weight_only_matmul": HERE / "int4_weight_only_matmul.cu",
+    "int4_matmul": HERE / "int4_matmul.cu",
     "int8_attention": HERE / "int8_attention.cu",
     "int4kv_decode_attention": HERE / "int4kv_decode_attention.cu",
 }

@@ -9,9 +9,10 @@ x_q = x/s_x + zp_x, y = s_x s_w (x_q @ w_q - zp_x * colsum(w_q)), so the
 zero-point correction folds into the bias.
 
 The JAX package sends small shapes to XLA's plain path (``_prefer_pallas_gemm``,
-the M >= 16 gate and the attention gate, measured on a TPU v5e). No such
-gate carries over: on the card every serving call launches the hand-written
-kernel.
+the M >= 16 gate and the attention gate, measured on a TPU v5e) and packs
+only int4 weights that tile its Pallas kernel (``int4_block_shapes_ok``).
+No such gate carries over: on the card every serving call launches the
+hand-written kernel.
 """
 
 from typing import Optional
@@ -22,12 +23,14 @@ from torch import nn
 from brevitas_tpu_torch import config
 from brevitas_tpu_torch.graph.base import named_modules, set_module
 from brevitas_tpu_torch.kernels import (
+    int4_matmul,
     int4_weight_only_matmul,
     int4kv_decode_attention,
     int8_attention_dispatch,
     int8_decode_attention,
     int8_matmul,
     pack_int4_rows,
+    unpack_int4_rows,
     update_kv_packed,
 )
 from brevitas_tpu_torch.nn.attention import QuantMultiheadAttention, apply_rope
@@ -95,27 +98,39 @@ def _carried_codes(x):
 
 
 class Int8InferenceLinear(nn.Module):
-    """Serving twin of a trained QuantLinear: cached int8 weight (K, N) and
-    the int8 GEMM kernel.
+    """Serving twin of a trained QuantLinear: cached integer weight (K, N)
+    and the integer GEMM kernel.
 
-    Weights of 4 bits or fewer with an INT input quantizer are stored here
-    as unpacked int8 codes and go through ``int8_matmul``: the JAX package
-    packs them for ``int4_matmul``, whose int32 accumulation and epilogue
-    are the same, so the output is identical. Packing waits for the port
-    of ``int4_matmul``."""
+    Weights of 8 bits go through ``int8_matmul``. Weights of 4 bits or fewer
+    (W4A8) are stored packed two per byte (``w_packed``, (K/2, N), and no
+    ``w_int``) and go through ``int4_matmul`` when ``config.INT4_PACKED_SERVING``
+    is on and K is even. The JAX package packs only shapes that tile its
+    Pallas kernel (``int4_block_shapes_ok``) and sends the others to its
+    plain int8 GEMM, whose exact int32 accumulator and epilogue order are
+    ``int4_matmul``'s; so packing every such weight here gives the same
+    output."""
 
     def __init__(self, qlinear: QuantLinear, act: Optional[str] = None):
         super().__init__()
         with torch.no_grad():
             qw = qlinear.quant_weight()
-            if float(qw.bit_width) > 8.0:
+            bit_width = float(qw.bit_width)
+            if bit_width > 8.0:
                 raise ValueError("the int8 path needs bit_width <= 8")
             w_int = qw.int().t().contiguous()  # (in, out) int8
             w_scale = qw.scale.reshape(-1).to(torch.float32)
+            # the column sums come from the codes, before any packing
             colsum = w_int.to(torch.int32).sum(0).to(torch.float32)
             bias = (qlinear.bias.detach().to(torch.float32) if qlinear.bias is not None
                     else torch.zeros(w_int.shape[1], device=w_int.device))
-            self.register_buffer("w_int", w_int)
+            if (config.INT4_PACKED_SERVING and bit_width <= 4.0
+                    and w_int.shape[0] % 2 == 0):
+                # the packed bytes are the only weight copy
+                self.register_buffer("w_packed", pack_int4_rows(w_int).contiguous())
+                self.register_buffer("w_int", None)
+            else:
+                self.register_buffer("w_packed", None)
+                self.register_buffer("w_int", w_int)
             self.register_buffer("w_scale", w_scale)
             self.register_buffer("colsum", colsum)
             if qlinear.input_quant.quant_type == QuantType.NONE:
@@ -144,7 +159,8 @@ class Int8InferenceLinear(nn.Module):
             if carried is None:
                 # no grid for this input: the dequantized-weight float path
                 # keeps the function right
-                y = _val(x) @ (self.w_int.to(torch.float32) * self.w_scale) + self.bias
+                w = self.w_int if self.w_packed is None else unpack_int4_rows(self.w_packed)
+                y = _val(x) @ (w.to(torch.float32) * self.w_scale) + self.bias
                 y = torch.clamp_min(y, 0.0) if self.act == "relu" else y
                 return _apply_output_quant(y, self.output_quant)
             x_int, x_scale, shift = carried
@@ -156,7 +172,10 @@ class Int8InferenceLinear(nn.Module):
             x_int = torch.clamp(torch.round(x / x_scale + self.x_zp), self.x_lo, self.x_hi)
             x_int = (x_int - self.x_shift).to(torch.int8)
         flat = x_int.reshape(-1, x_int.shape[-1])
-        y = int8_matmul(flat, self.w_int, x_scale, self.w_scale, bias, act=self.act)
+        if self.w_packed is not None:
+            y = int4_matmul(flat, self.w_packed, x_scale, self.w_scale, bias, act=self.act)
+        else:
+            y = int8_matmul(flat, self.w_int, x_scale, self.w_scale, bias, act=self.act)
         y = y.reshape(*x.shape[:-1], self.out_features)
         return _apply_output_quant(y, self.output_quant)
 
@@ -336,10 +355,11 @@ class Int8InferenceAttention(nn.Module):
 def convert_integer_inference(model: nn.Module) -> nn.Module:
     """Swap every eligible trained layer for its integer serving twin, in
     place: QuantMultiheadAttention for ``Int8InferenceAttention`` (whose
-    projections become int8 twins with it); a QuantLinear for weight-only
+    projections become integer twins with it); a QuantLinear for weight-only
     int4 when it has no input quantizer and weights of 4 bits or fewer, else
-    int8 (frozen input grid, or the carried grid when it has no input
-    quantizer). Other layers stay on the fake-quant path."""
+    ``Int8InferenceLinear`` (frozen input grid, or the carried grid when it
+    has no input quantizer; packed weights for W4A8). Other layers stay on
+    the fake-quant path."""
     converted = []
     for path, mod in list(named_modules(model)):
         if any(path.startswith(p + ".") for p in converted):

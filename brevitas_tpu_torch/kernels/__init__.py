@@ -1,5 +1,5 @@
 """Serving kernels (port of ``brevitas_tpu/kernels``; ported: ``int8_matmul``,
-``int4_weight_only_matmul``, ``int8_attention`` and
+``int4_matmul``, ``int4_weight_only_matmul``, ``int8_attention`` and
 ``int4kv_decode_attention``).
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/``) on a CUDA
@@ -8,6 +8,8 @@ only for a tensor on the CPU. ``<wrapper>.launches`` counts kernel launches.
 """
 
 from brevitas_tpu_torch.kernels.int4 import (
+    int4_matmul,
+    int4_matmul_reference,
     int4_weight_only_matmul,
     int4_weight_only_matmul_reference,
     pack_int4_rows,
@@ -26,7 +28,8 @@ from brevitas_tpu_torch.kernels.int8_attention import (
 )
 from brevitas_tpu_torch.kernels.int_matmul import int8_matmul, int8_matmul_reference
 
-__all__ = ["int8_matmul", "int8_matmul_reference", "int4_weight_only_matmul",
+__all__ = ["int8_matmul", "int8_matmul_reference", "int4_matmul",
+           "int4_matmul_reference", "int4_weight_only_matmul",
            "int4_weight_only_matmul_reference", "pack_int4_rows",
            "unpack_int4_rows", "int8_attention", "int8_attention_reference",
            "int8_attention_dispatch", "int8_decode_attention",

@@ -1,12 +1,13 @@
-"""Int4 weights: split-halves packing and the w4a16 GEMM (port of
-``brevitas_tpu/kernels/int4.py``; ported: ``pack_int4_rows``, its unpack
-and ``int4_weight_only_matmul``).
+"""Int4 weights: split-halves packing, the W4A8 GEMM and the w4a16 GEMM
+(port of ``brevitas_tpu/kernels/int4.py``; ported: ``pack_int4_rows``, its
+unpack, ``int4_matmul`` and ``int4_weight_only_matmul``).
 
 Packing layout (``pack_int4_rows``): byte row j of the (K/2, N) packed array
 holds weight row j in its LOW nibble and weight row j + K/2 in its HIGH
-nibble. On a CUDA tensor ``int4_weight_only_matmul`` launches the
-hand-written Hopper kernel ``csrc/int4_weight_only_matmul.cu``; on a CPU
-tensor it takes the plain version.
+nibble. On a CUDA tensor ``int4_matmul`` and ``int4_weight_only_matmul``
+launch the hand-written Hopper kernels ``csrc/int4_matmul.cu`` and
+``csrc/int4_weight_only_matmul.cu``; on a CPU tensor they take the plain
+versions.
 """
 
 import functools
@@ -15,6 +16,10 @@ from typing import Optional
 import torch
 
 from brevitas_tpu_torch.kernels import _launch
+from brevitas_tpu_torch.kernels.int_matmul import int8_matmul_reference
+
+# the int32 accumulator holds K products of at most 128 * 8 = 2^10 each
+MAX_K = 2**21
 
 
 def pack_int4_rows(w: torch.Tensor) -> torch.Tensor:
@@ -35,6 +40,56 @@ def unpack_int4_rows(w_packed: torch.Tensor) -> torch.Tensor:
     lo = ((p & 0xF) ^ 8) - 8
     hi = p >> 4
     return torch.cat([lo, hi], dim=0).to(torch.int8)
+
+
+def int4_matmul_reference(x_i8: torch.Tensor, w_packed: torch.Tensor, x_scale,
+                          w_scale, bias: Optional[torch.Tensor] = None,
+                          act: Optional[str] = None) -> torch.Tensor:
+    """Plain PyTorch version: the weights unpacked, then the int8 GEMM's
+    plain version (an exact int32 accumulator from a float64 matmul, then
+    ``float(acc) * (x_scale * w_scale) + bias`` and ReLU, in that order)."""
+    return int8_matmul_reference(x_i8, unpack_int4_rows(w_packed), x_scale, w_scale,
+                                 bias, act)
+
+
+@functools.lru_cache(maxsize=None)
+def _w4a8_launcher():
+    return _launch.bind("int4_matmul", "int4_matmul_launch", 6, 4)
+
+
+def int4_matmul(x_i8: torch.Tensor, w_packed: torch.Tensor, x_scale, w_scale,
+                bias: Optional[torch.Tensor] = None,
+                act: Optional[str] = None) -> torch.Tensor:
+    """W4A8 GEMM: x_i8 (M, K) int8 codes (the full 8-bit range), w_packed
+    (K/2, N) from :func:`pack_int4_rows`, x_scale a scalar, w_scale a scalar
+    or (N,), bias None or (N,), act None or "relu". Returns (M, N) float32."""
+    if x_i8.device.type == "cpu":
+        return int4_matmul_reference(x_i8, w_packed, x_scale, w_scale, bias, act)
+    if x_i8.device.type != "cuda":
+        raise ValueError(f"int4_matmul runs on cuda or cpu, not {x_i8.device}")
+    device = x_i8.device
+    _launch.check_matrix("x_i8", x_i8, torch.int8, device)
+    _launch.check_matrix("w_packed", w_packed, torch.int8, device)
+    m, k = x_i8.shape
+    k2, n = w_packed.shape
+    if k != 2 * k2:
+        raise ValueError(f"x_i8 has K = {k} but w_packed holds {2 * k2} rows")
+    if k > MAX_K:
+        raise ValueError(f"K = {k} can overflow the int32 accumulator")
+    relu = _launch.check_act(act)
+    xs = _launch.f32_vector("x_scale", x_scale, 1, device)
+    ws = _launch.f32_vector("w_scale", w_scale, n, device, broadcast=True)
+    b = None if bias is None else _launch.f32_vector("bias", bias, n, device)
+    y = torch.empty((m, n), dtype=torch.float32, device=device)
+    _launch.launch(_w4a8_launcher(), "int4_matmul", device,
+                   x_i8.data_ptr(), w_packed.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+                   None if b is None else b.data_ptr(), y.data_ptr(),
+                   m, n, k2, relu)
+    int4_matmul.launches += 1
+    return y
+
+
+int4_matmul.launches = 0
 
 
 def int4_weight_only_matmul_reference(x: torch.Tensor, w_packed: torch.Tensor,

@@ -1,7 +1,13 @@
-"""Models (port of ``brevitas_tpu/models``; ported: the FC family and
-QuantLlama)."""
+"""Models (port of ``brevitas_tpu/models``; ported: the FC family, QuantLlama
+and QuantTransformer)."""
 
 from brevitas_tpu_torch.models.fc import FC, lfc, sfc, tfc
 from brevitas_tpu_torch.models.llama import QuantLlama, quant_llama_tiny
+from brevitas_tpu_torch.models.transformer import (
+    QuantTransformer,
+    QuantTransformerBlock,
+    quant_transformer_tiny,
+)
 
-__all__ = ["FC", "lfc", "sfc", "tfc", "QuantLlama", "quant_llama_tiny"]
+__all__ = ["FC", "lfc", "sfc", "tfc", "QuantLlama", "quant_llama_tiny",
+           "QuantTransformer", "QuantTransformerBlock", "quant_transformer_tiny"]

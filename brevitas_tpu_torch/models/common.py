@@ -1,7 +1,7 @@
 """Shared model components for the bnn_pynq family (port of
 ``brevitas_tpu/models/common.py``), plus the norms with flax nnx's
 semantics that the models use: BatchNorm for ``FC``, RMSNorm for
-``QuantLlama``.
+``QuantLlama``, LayerNorm for ``QuantTransformer``.
 """
 
 from typing import Optional
@@ -118,3 +118,25 @@ class RMSNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         var = torch.mean(torch.square(x.double()), dim=-1, keepdim=True)
         return x * (torch.rsqrt(var + self.eps).to(x.dtype) * self.scale)
+
+
+class LayerNorm(nn.Module):
+    """Layer norm over the last axis with flax nnx's semantics
+    (``nnx.LayerNorm`` as ``QuantTransformer`` builds it): the variance is
+    ``E[x^2] - E[x]^2`` clamped at 0, the output ``(x - mean) * (rsqrt(var +
+    eps) * scale) + bias``, epsilon 1e-6. The mean, variance and rsqrt are
+    formed in float64 and each rounded once, so the card and a CPU copy
+    agree (the order of a float32 sum differs between them)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x64 = x.double()
+        mean = x64.mean(-1, keepdim=True)
+        var = torch.clamp_min(torch.square(x64).mean(-1, keepdim=True) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps).to(x.dtype)
+        return (x - mean.to(x.dtype)) * (mul * self.scale) + self.bias

@@ -1,13 +1,18 @@
 """Quant activations (port of ``brevitas_tpu/nn/activation.py``; ported:
-the base layer and QuantIdentity)."""
+the base layer, QuantIdentity and QuantReLU)."""
 
 from typing import Callable, Optional
 
+import torch
 from torch import nn
 
 from brevitas_tpu_torch.nn.quant_layer import QuantLayerMixin
 from brevitas_tpu_torch.quant.config import QuantConfig
-from brevitas_tpu_torch.quant.presets import Int8ActPerTensorFloat, NoneActQuant
+from brevitas_tpu_torch.quant.presets import (
+    Int8ActPerTensorFloat,
+    NoneActQuant,
+    Uint8ActPerTensorFloat,
+)
 from brevitas_tpu_torch.quant.quantizers import ActQuantizer
 
 
@@ -34,3 +39,11 @@ class QuantIdentity(QuantNonLinearActLayer):
     def __init__(self, act_quant: Optional[QuantConfig] = Int8ActPerTensorFloat,
                  return_quant_tensor: bool = False):
         super().__init__(None, act_quant, return_quant_tensor)
+
+
+class QuantReLU(QuantNonLinearActLayer):
+    """ReLU, then an unsigned activation quantizer."""
+
+    def __init__(self, act_quant: Optional[QuantConfig] = Uint8ActPerTensorFloat,
+                 return_quant_tensor: bool = False):
+        super().__init__(torch.relu, act_quant, return_quant_tensor)

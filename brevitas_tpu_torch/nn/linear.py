@@ -36,8 +36,10 @@ class QuantLinear(QuantWBIOL):
         self.weight = torch.nn.Parameter(w)
         self.bias = (torch.nn.Parameter(torch.zeros(out_features, dtype=dtype))
                      if use_bias else None)
+        # the output channel is axis 0 of the (out, in) weight
         self.init_quant(weight_quant, bias_quant, input_quant, output_quant,
-                        weight_init=w, return_quant_tensor=return_quant_tensor)
+                        weight_init=w, return_quant_tensor=return_quant_tensor,
+                        channel_axis=0)
         if device is not None:
             self.to(device)
 

@@ -26,7 +26,9 @@ class QuantEmbedding(QuantLayerMixin, nn.Module):
         # every device
         w = torch.randn((num_embeddings, embedding_dim), generator=generator)
         self.weight = nn.Parameter(w)
-        self.weight_quant = ParameterQuantizer(weight_quant or NoneWeightQuant, w)
+        # per-channel scaling gives each vocabulary row its own scale
+        self.weight_quant = ParameterQuantizer(weight_quant or NoneWeightQuant, w,
+                                               channel_axis=0)
         self.return_quant_tensor = return_quant_tensor
 
     def forward(self, ids: torch.Tensor):

@@ -50,9 +50,10 @@ class QuantWBIOL(QuantLayerMixin, nn.Module):
                    bias_quant: Optional[QuantConfig],
                    input_quant: Optional[QuantConfig],
                    output_quant: Optional[QuantConfig],
-                   weight_init: torch.Tensor, return_quant_tensor: bool) -> None:
+                   weight_init: torch.Tensor, return_quant_tensor: bool,
+                   channel_axis: int = 0) -> None:
         self.weight_quant = ParameterQuantizer(
-            _cfg(weight_quant, NoneWeightQuant), weight_init)
+            _cfg(weight_quant, NoneWeightQuant), weight_init, channel_axis)
         self.input_quant = ActQuantizer(_cfg(input_quant, NoneActQuant))
         self.output_quant = ActQuantizer(_cfg(output_quant, NoneActQuant))
         self.bias_quant = BiasQuantizer(_cfg(bias_quant, NoneBiasQuant))
@@ -88,7 +89,12 @@ class QuantWBIOL(QuantLayerMixin, nn.Module):
             output_bit_width = self.max_acc_bit_width(quant_input.bit_width,
                                                       quant_weight.bit_width)
         if quant_input.scale is not None and quant_weight.scale is not None:
-            output_scale = quant_weight.scale * quant_input.scale
+            # a per-channel weight scale (out, 1) becomes (out,), which
+            # broadcasts against the (..., out) output
+            w_scale = quant_weight.scale
+            if w_scale.ndim > 1:
+                w_scale = w_scale.reshape(-1)
+            output_scale = w_scale * quant_input.scale
         if quant_input.signed is not None:
             output_signed = quant_input.signed or quant_weight.signed
 

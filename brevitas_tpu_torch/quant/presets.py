@@ -18,6 +18,9 @@ _PARAM_FROM_PERCENTILE = dict(
     collect_stats_steps=300, scaling_min_val=1e-10)
 
 Int8WeightPerTensorFloat = _INT.let(narrow_range=True, bit_width=8, **_MAX_STATS)
+Int8WeightPerChannelFloat = Int8WeightPerTensorFloat.let(scaling_per_output_channel=True)
+Int4WeightPerTensorFloat = Int8WeightPerTensorFloat.let(bit_width=4)
+Int4WeightPerChannelFloat = Int8WeightPerChannelFloat.let(bit_width=4)
 
 Int8ActPerTensorFloat = _INT.let(bit_width=8, **_PARAM_FROM_PERCENTILE)
 Uint8ActPerTensorFloat = _UINT.let(bit_width=8, **_PARAM_FROM_PERCENTILE)

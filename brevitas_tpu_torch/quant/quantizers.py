@@ -4,9 +4,10 @@
 Ported: CONST bit-width; CONST scaling, STATS scaling of weights
 (``StatsScaling``) and two-phase PARAMETER_FROM_STATS scaling of activations
 (``ParameterFromRuntimeStatsScaling``); ZERO zero-point; quant delay; the
-INT/NONE weight and activation quantizers, signed or unsigned, per-tensor;
-and the NONE bias quantizer. Configs that need anything else raise
-``NotImplementedError``.
+INT/NONE weight quantizer, per-tensor or per output channel, and activation
+quantizer, per-tensor, signed or unsigned; the NONE bias quantizer; and the
+``disable_quant`` switch that calibration mode sets. Configs that need
+anything else raise ``NotImplementedError``.
 
 The JAX package selects the two-phase scaler's branch with ``lax.cond`` on
 a carried counter so it stays inside one jitted step; PyTorch runs eagerly,
@@ -14,7 +15,7 @@ so the port branches in Python on the same counter, with the same buffer,
 value and handoff semantics. Train/eval is ``nn.Module.training``.
 """
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -38,13 +39,27 @@ from brevitas_tpu_torch.quant.config import (
 from brevitas_tpu_torch.quant_tensor import QuantTensor
 
 
-def stats_view(x: torch.Tensor) -> torch.Tensor:
-    """View ``x`` as (groups, elems) for the stats ops: one group, as
-    per-tensor scaling needs (per-channel scaling is not ported yet)."""
+def stats_view(x: torch.Tensor, per_channel: bool = False,
+               channel_axis: int = 0) -> torch.Tensor:
+    """View ``x`` as (groups, elems) for the stats ops: one group per output
+    channel, or a single group for per-tensor scaling."""
+    if per_channel:
+        x = torch.movedim(x, channel_axis, 0)
+        return x.reshape(x.shape[0], -1)
     return x.reshape(1, -1)
 
 
+def scaling_broadcast_shape(shape: Sequence[int], per_channel: bool,
+                            channel_axis: int = 0) -> Tuple[int, ...]:
+    """Broadcastable scale shape: the channel dimension kept, all others 1."""
+    if not per_channel:
+        return ()
+    return tuple(d if i == channel_axis % len(shape) else 1
+                 for i, d in enumerate(shape))
+
+
 def _expand(stat: torch.Tensor, bshape: Tuple[int, ...]) -> torch.Tensor:
+    """A (groups,) stat in the broadcastable scale shape."""
     return stat.reshape(bshape)
 
 
@@ -218,34 +233,41 @@ class QuantDelay(nn.Module):
         return x if c < self.steps else y
 
 
-def _check_int_per_tensor(cfg: QuantConfig, quant_type: QuantType) -> None:
+def _check_int(quant_type: QuantType) -> None:
     if quant_type != QuantType.INT:
         raise NotImplementedError(f"{quant_type.value} quantization is not ported yet")
-    if cfg.scaling_per_output_channel:
-        raise NotImplementedError("per-channel scaling is not ported yet")
 
 
 class ParameterQuantizer(nn.Module):
-    """Weight-side quantizer: INT with per-tensor scaling, or NONE."""
+    """Weight-side quantizer: INT with per-tensor or per-output-channel
+    scaling, or NONE. ``channel_axis`` is the weight's output-channel axis:
+    0 for the port's (out, in) linear weight and for an embedding table's
+    rows (the JAX package's (in, out) linear weight has it at 1)."""
 
-    def __init__(self, cfg: QuantConfig, weight_init: torch.Tensor):
+    def __init__(self, cfg: QuantConfig, weight_init: torch.Tensor,
+                 channel_axis: int = 0):
         super().__init__()
         self.cfg = cfg
         self.quant_type = QuantType(cfg.quant_type)
+        self.disable_quant = False  # calibration mode: the float weight passes
+        self.channel_axis = channel_axis
+        self.per_channel = bool(cfg.scaling_per_output_channel)
         if self.quant_type == QuantType.NONE:
             return
-        _check_int_per_tensor(cfg, self.quant_type)
+        _check_int(self.quant_type)
         self._float_to_int = R.float_to_int_fn(cfg.float_to_int)
         self.bit_width_impl = BitWidth(cfg)
-        self.scaling = build_scaling(cfg, (), init_stats_input=stats_view(weight_init))
+        bshape = scaling_broadcast_shape(weight_init.shape, self.per_channel, channel_axis)
+        self.scaling = build_scaling(cfg, bshape, init_stats_input=stats_view(
+            weight_init, self.per_channel, channel_axis))
         self.zero_point = ZeroPoint(cfg)
         self.delay = QuantDelay(cfg.quant_delay_steps)
 
     def forward(self, w: torch.Tensor) -> QuantTensor:
         cfg = self.cfg
-        if self.quant_type == QuantType.NONE:
+        if self.quant_type == QuantType.NONE or self.disable_quant:
             return QuantTensor(w)
-        view = stats_view(w)
+        view = stats_view(w, self.per_channel, self.channel_axis)
         bit_width = self.bit_width_impl()
         scale = Qf.rescaling_scale(self.scaling(view), bit_width, signed=cfg.signed,
                                    narrow_range=cfg.narrow_range)
@@ -264,9 +286,12 @@ class ActQuantizer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.quant_type = QuantType(cfg.quant_type)
+        self.disable_quant = False  # calibration mode: collect, pass the float value
         if self.quant_type == QuantType.NONE:
             return
-        _check_int_per_tensor(cfg, self.quant_type)
+        _check_int(self.quant_type)
+        if cfg.scaling_per_output_channel:
+            raise NotImplementedError("per-channel activation scaling is not ported yet")
         self._float_to_int = R.float_to_int_fn(cfg.float_to_int)
         self.bit_width_impl = BitWidth(cfg)
         self.scaling = build_scaling(cfg, ())
@@ -278,6 +303,11 @@ class ActQuantizer(nn.Module):
         if self.quant_type == QuantType.NONE:
             return QuantTensor(x, training=self.training)
         view = stats_view(x)
+        if self.disable_quant:
+            # calibration mode: the scaling statistics advance, the float
+            # value passes unchanged
+            self.scaling(view)
+            return QuantTensor(x, training=self.training)
         bit_width = self.bit_width_impl()
         scale = Qf.rescaling_scale(self.scaling(view), bit_width, signed=cfg.signed,
                                    narrow_range=cfg.narrow_range)

@@ -11,10 +11,12 @@ Phases; any failure exits non-zero and prints no result:
              nvcc per source, all at once) and print the time and ptxas report.
 2. card    - the card's name and power limit, as nvidia-smi reports them.
 3. kernels - the GEMM kernels at the LFC shapes (M in {1, 128, 1024}, (K, N) in
-             {(784, 1024), (1024, 1024), (1024, 10)}) and int8_matmul at the
-             Llama shapes (M in {4096, 16}, the four (K, N) of a block and the
-             head) on random full-range codes, held against their plain
-             PyTorch versions on the card: int8 bit for bit, w4a16 within
+             {(784, 1024), (1024, 1024), (1024, 10)}), int8_matmul and
+             int4_matmul at the Llama shapes (M in {4096, 16}, the four (K, N)
+             of a block and the head), int8_matmul at serve --decode's four
+             shapes (M 32) and int4_matmul at ragged shapes, on
+             random full-range codes, held against their plain PyTorch
+             versions on the card: int8 and W4A8 bit for bit, w4a16 within
              1e-5 * sum|bf16(x)||w| * |w_scale|. Median times (CUDA events) of
              the kernel, the plain version and one library call, beside the
              least time the card could take.
@@ -44,16 +46,28 @@ Phases; any failure exits non-zero and prints no result:
              step, and 6 int4kv_decode_attention launches a packed step. The
              first 16 steps of 2 sequences are compared with a CPU copy fed
              the same tokens.
-9. report  - one {"kernels": [...]} line; the last line is
+9. llama_w4a8_prefill, llama_w4a8_decode - the same Llama with 4-bit weights
+             per output channel (Int4WeightPerChannelFloat) and 8-bit
+             activations: every linear packed, 43 int4_matmul launches per
+             forward or step and no int8_matmul; checked as in 7 and 8.
+10. serve_decode - examples.serve.main(["--decode"]) at its defaults (dim 128,
+             batch 32, 128 tokens), with the int8 KV cache and with --kv-bits
+             4: 13 int8_matmul launches a step, 2 int4kv_decode_attention a
+             packed step. The model it timed decodes again on the card; its
+             tokens equal the served ones, and its logits of all 32
+             sequences over the 128 steps are checked as in 8.
+11. report - one {"kernels": [...]} line; the last line is
              {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The comparison with a CPU copy is made layer by layer, each serving layer of
 the copy fed the card's input to that layer (int8 GEMM layers must match
 exactly, w4a16 layers within the tolerance above, attention layers in at
 least 99 % of their token rows: a probability code that flips at a .5 tie
-changes its own row), and end to end on the logits (LFC: reported; Llama:
-argmax agreement of at least 99 % and max |diff| within 5 % of the largest
-logit, since a flipped code feeds the later positions and layers).
+changes its own row), and end to end on the logits (LFC: reported; Llama
+and serve --decode: a copy fed the card's attention outputs must give the
+card's logits bit for bit, and a free-running copy needs argmax agreement
+of at least 90 % and max |diff| within 10 % of the largest logit, since a
+flipped code feeds the later positions and layers).
 """
 
 import copy
@@ -70,6 +84,11 @@ LFC_KN = [(784, 1024), (1024, 1024), (1024, 1024), (1024, 10)]  # LFC's linears
 SHAPES_KN = [(784, 1024), (1024, 1024), (1024, 10)]
 SHAPES_M = [1, 128, 1024]
 SERVE_BATCH = 128   # serve phase batch: the int8 path's M
+# examples.serve --decode at the JAX package's defaults; its model has depth
+# 2, each block 4 + 2 linears, plus the head: the int8_matmul shapes below
+SERVE_DECODE = dict(tokens=128, batch=32, dim=128)
+SERVE_DECODE_BLOCKS = 2
+SERVE_DECODE_KN = [(128, 128), (128, 512), (512, 128), (128, 256)]
 LFC_BATCH = 1024    # lfc phase batch: the w4a16 path's M
 
 # dense peaks from NVIDIA's data sheets: memory bytes/s, int8 op/s, bf16 flop/s
@@ -173,9 +192,10 @@ def phase_kernels(dev, peaks):
           "bound_by | max_abs_err | call_ms (device times; call_ms includes the "
           "host's launch overhead)")
     shapes = ([(m, k, n) for m in SHAPES_M for k, n in SHAPES_KN]
-              + [(m, k, n) for m in LLAMA_M for k, n in LLAMA_KN])
+              + [(m, k, n) for m in LLAMA_M for k, n in LLAMA_KN]
+              + [(SERVE_DECODE["batch"], k, n) for k, n in SERVE_DECODE_KN])
     for m, k, n in shapes:
-        llama = (k, n) in LLAMA_KN and m in LLAMA_M
+        lfc = m in SHAPES_M and (k, n) in SHAPES_KN
         # int8: the serving path passes a bias and no activation
         x = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
         w = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
@@ -206,7 +226,7 @@ def phase_kernels(dev, peaks):
                          call_ms=t_call))
         print(f"[kernels] int8_matmul {m} {k} {n} | {t_k:.4f} {t_p:.4f} {lib} "
               f"{t_b:.3g} {by} | {err} | call {t_call:.4f}")
-        if llama:  # Llama has no w4a16 layer
+        if not lfc:  # only LFC has w4a16 layers
             continue
 
         # w4a16: LFC's linears have no bias
@@ -240,6 +260,59 @@ def phase_kernels(dev, peaks):
                          err=err, call_ms=t_call))
         print(f"[kernels] int4_weight_only_matmul {m} {k} {n} | {t_k:.4f} "
               f"{t_p:.4f} {t_l:.4f} {t_b:.3g} {by} | {err:.3g} | call {t_call:.4f}")
+    return rows
+
+
+# int4_matmul at ragged shapes: K/2 = 3, 392 and 1; N off the 64-column tile
+INT4_EDGE_SHAPES = [(1, 6, 10), (37, 784, 1024), (5, 2, 3)]
+
+
+def phase_int4_kernel(dev, peaks):
+    """int4_matmul (W4A8) at the Llama shapes and ragged ones, with and
+    without bias, with ReLU, per-channel and scalar weight scales: bit for
+    bit against its plain version, and timed. Returns the rows."""
+    from brevitas_tpu_torch.kernels import int4_matmul, int4_matmul_reference, unpack_int4_rows
+
+    bw, int8_peak, _ = peaks
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    print("[kernels] int4_matmul M K N | kernel_ms plain_ms library_ms(torch._int_mm on "
+          "unpacked 8-bit weights, not the same function) bound_ms bound_by | max_abs_err "
+          "| call_ms")
+    shapes = INT4_EDGE_SHAPES + [(m, k, n) for m in LLAMA_M for k, n in LLAMA_KN]
+    for m, k, n in shapes:
+        x = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        wp = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev, dtype=torch.int8)
+        xs = torch.rand((), generator=g, device=dev) * 0.05 + 1e-3
+        ws = torch.rand(n, generator=g, device=dev) * 0.05 + 1e-3
+        b = torch.randn(n, generator=g, device=dev)
+        err = 0.0
+        for w_scale, bias, act in ((ws, b, None), (ws, None, None), (ws, b, "relu"),
+                                   (xs * 2, None, "relu"), (xs * 2, b, None)):
+            got = int4_matmul(x, wp, xs, w_scale, bias, act=act)
+            want = int4_matmul_reference(x, wp, xs, w_scale, bias, act=act)
+            torch.cuda.synchronize()
+            err = max(err, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"int4_matmul differs from its plain version at {(m, k, n)} act={act} "
+                    f"bias={bias is not None} per-channel={w_scale is ws}: max {err}")
+        # the serving path passes a bias (the zero-point fold) and no activation
+        t_k = cuda_ms(lambda: int4_matmul(x, wp, xs, ws, b))
+        t_call = cuda_ms(lambda: int4_matmul(x, wp, xs, ws, b), device_only=False)
+        t_p = cuda_ms(lambda: int4_matmul_reference(x, wp, xs, ws, b))
+        if m > 16 and k % 8 == 0 and n % 8 == 0:
+            w8 = unpack_int4_rows(wp)
+            t_l = cuda_ms(lambda: torch._int_mm(x, w8).to(torch.float32) * (xs * ws) + b)
+            lib = f"{t_l:.4f}"
+        else:
+            t_l, lib = None, "n/a(_int_mm needs M>16, K%8=0, N%8=0)"
+        nbytes = m * k + (k // 2) * n + 4 + 8 * n + 4 * m * n
+        t_b, by = bound(nbytes, 2.0 * m * n * k, bw, int8_peak)
+        rows.append(dict(kernel="int4_matmul", m=m, k=k, n=n, ms=t_k, plain_ms=t_p,
+                         library_ms=t_l, bound_ms=t_b, bound_by=by, err=err, call_ms=t_call))
+        print(f"[kernels] int4_matmul {m} {k} {n} | {t_k:.4f} {t_p:.4f} {lib} {t_b:.3g} "
+              f"{by} | {err} | call {t_call:.4f}")
     return rows
 
 
@@ -486,6 +559,7 @@ def _launch_counts():
     from brevitas_tpu_torch import kernels as K
 
     return {"int8_matmul": K.int8_matmul.launches,
+            "int4_matmul": K.int4_matmul.launches,
             "int4_weight_only_matmul": K.int4_weight_only_matmul.launches,
             "int8_attention": K.int8_attention.launches,
             "int4kv_decode_attention": K.int4kv_decode_attention.launches}
@@ -498,15 +572,19 @@ def _reset_launch_counts():
         getattr(K, name).launches = 0
 
 
-def build_llama(dev, calib_ids: np.ndarray, kv_bit_width=None):
+def build_llama(dev, calib_ids: np.ndarray, kv_bit_width=None, w4a8=False):
     """bench.py's recipe: random weights from seed 0, one train-mode forward
-    to calibrate the activation grids, eval, convert_integer_inference."""
+    to calibrate the activation grids, eval, convert_integer_inference.
+    ``w4a8``: 4-bit weights per output channel (the package's own preset
+    Int4WeightPerChannelFloat), every linear then packed."""
     from brevitas_tpu_torch import config
     from brevitas_tpu_torch import graph as G
     from brevitas_tpu_torch.graph.convert_int import Int8InferenceAttention, Int8InferenceLinear
     from brevitas_tpu_torch.models import QuantLlama
+    from brevitas_tpu_torch.quant.presets import Int4WeightPerChannelFloat
 
     model = QuantLlama(bit_width=8, kv_bit_width=kv_bit_width,
+                       weight_quant=Int4WeightPerChannelFloat if w4a8 else None,
                        generator=torch.Generator().manual_seed(0), device=dev, **LLAMA_DIMS)
     with torch.no_grad():
         model(torch.from_numpy(calib_ids).to(dev))
@@ -526,7 +604,17 @@ def build_llama(dev, calib_ids: np.ndarray, kv_bit_width=None):
     packed = {m.kv_int4 for m in model.modules() if isinstance(m, Int8InferenceAttention)}
     if packed != {bool(kv_bit_width)}:
         raise AssertionError(f"llama: packed KV cache {packed}, expected {bool(kv_bit_width)}")
+    packed_w = {m.w_packed is not None for m in model.modules()
+                if isinstance(m, Int8InferenceLinear)}
+    if packed_w != {w4a8}:
+        raise AssertionError(f"llama: packed weights {packed_w}, expected {w4a8}")
     return model
+
+
+def gemm_expect(w4a8: bool, n: int) -> dict:
+    """The GEMM launches of ``n`` Llama linears: all int4_matmul for W4A8,
+    all int8_matmul otherwise."""
+    return {"int4_matmul": n if w4a8 else 0, "int8_matmul": 0 if w4a8 else n}
 
 
 class AttentionTap:
@@ -635,15 +723,14 @@ def profile_batch(model, batch: np.ndarray, what: str) -> None:
     profile_steps(lambda: model(x.cuda()).cpu(), what, f"batch of {batch.shape[0]}", n=5)
 
 
-def phase_llama_prefill(dev) -> dict:
+def phase_llama_prefill(dev, w4a8=False) -> dict:
     """Full-width Llama prefill, 8 x 512 causal, on the converted model."""
-    from brevitas_tpu_torch.graph.convert_int import Int8InferenceAttention
-
+    what = "llama_w4a8_prefill" if w4a8 else "llama_prefill"
     vocab = LLAMA_DIMS["vocab_size"]
     calib = np.random.default_rng(0).integers(0, vocab, (PREFILL_BATCH, PREFILL_T))
     ids = torch.from_numpy(np.random.default_rng(1).integers(
         0, vocab, (PREFILL_BATCH, PREFILL_T))).to(dev)
-    model = build_llama(dev, calib)
+    model = build_llama(dev, calib, w4a8=w4a8)
     tap = AttentionTap(model, 1)
     _reset_launch_counts()
     with torch.no_grad():
@@ -651,18 +738,18 @@ def phase_llama_prefill(dev) -> dict:
     torch.cuda.synchronize()
     counts = _launch_counts()
     tap.detach()
-    print(f"[llama_prefill] {PREFILL_BATCH} x {PREFILL_T} causal: launches {counts}")
-    if counts["int8_attention"] != 6 or counts["int8_matmul"] != 43:
-        raise AssertionError("llama_prefill: expected 6 int8_attention and 43 int8_matmul "
-                             "launches per forward")
+    print(f"[{what}] {PREFILL_BATCH} x {PREFILL_T} causal: launches {counts}")
+    expected = {"int8_attention": 6, **gemm_expect(w4a8, 43)}
+    if any(counts[k] != v for k, v in expected.items()):
+        raise AssertionError(f"{what}: expected launches {expected} per forward")
     if tuple(logits.shape) != (PREFILL_BATCH, PREFILL_T, vocab):
-        raise AssertionError(f"llama_prefill: logits of shape {tuple(logits.shape)}")
+        raise AssertionError(f"{what}: logits of shape {tuple(logits.shape)}")
 
     cpu_model = copy.deepcopy(model).to("cpu")
     with torch.no_grad():
-        compare_logits(logits[:1].cpu(), cpu_model(ids[:1].cpu()), "llama_prefill")
+        compare_logits(logits[:1].cpu(), cpu_model(ids[:1].cpu()), what)
         replay = AttentionTap(cpu_model, 1, replay=tap.record)
-        check_replay(replay, cpu_model(ids[:1].cpu()), logits[:1].cpu(), "llama_prefill")
+        check_replay(replay, cpu_model(ids[:1].cpu()), logits[:1].cpu(), what)
     del cpu_model
 
     def forward():
@@ -679,18 +766,18 @@ def phase_llama_prefill(dev) -> dict:
     ms = statistics.median(times)
     out = {"ms_per_forward": ms, "sequences_per_s": PREFILL_BATCH / ms * 1e3,
            "tokens_per_s": PREFILL_BATCH * PREFILL_T / ms * 1e3, "launches": counts}
-    print(f"[llama_prefill] {ms:.3f} ms per forward (median of 5, host clock with "
+    print(f"[{what}] {ms:.3f} ms per forward (median of 5, host clock with "
           f"synchronize): {out['sequences_per_s']:.1f} sequences/s, "
           f"{out['tokens_per_s']:.0f} tokens/s")
-    out["profile"] = profile_steps(forward, "llama_prefill", "forward")
+    out["profile"] = profile_steps(forward, what, "forward")
     return out
 
 
-def greedy_decode(model, first: torch.Tensor, steps: int):
+def greedy_decode(model, first: torch.Tensor, steps: int, max_len: int = DECODE_MAX_LEN):
     """``steps`` greedy decode steps from the tokens ``first`` (B, 1) at
-    position 0 on a fresh cache of DECODE_MAX_LEN; returns the tokens fed
+    position 0 on a fresh cache of ``max_len``; returns the tokens fed
     (steps, B, 1) and the logits (steps, B, vocab)."""
-    caches = model.init_decode_caches(first.shape[0], DECODE_MAX_LEN)
+    caches = model.init_decode_caches(first.shape[0], max_len)
     tok, fed, logits = first, [], []
     for pos in range(steps):
         fed.append(tok)
@@ -700,13 +787,36 @@ def greedy_decode(model, first: torch.Tensor, steps: int):
     return torch.stack(fed), torch.stack(logits)
 
 
-def phase_llama_decode(dev, kv_bit_width) -> dict:
+def check_decode(model, tap: AttentionTap, fed, logits, max_len: int, what: str) -> None:
+    """A decode run on the card (``fed`` and ``logits`` from greedy_decode,
+    its attention twins recorded by ``tap``) against a CPU copy fed the same
+    tokens for the tap's first sequences: free-running (compare_logits),
+    then with the card's attention outputs replayed (check_replay)."""
+    n = tap.n
+    cpu_model = copy.deepcopy(model).to("cpu")
+
+    def cpu_decode():
+        caches, out = cpu_model.init_decode_caches(n, max_len), []
+        for pos in range(fed.shape[0]):
+            y, caches = cpu_model.decode_step(fed[pos, :n].cpu(), caches, pos)
+            out.append(y[:, 0])
+        return torch.stack(out)
+
+    with torch.no_grad():
+        compare_logits(logits[:, :n].cpu(), cpu_decode(), what)
+        replay = AttentionTap(cpu_model, n, replay=tap.record)
+        check_replay(replay, cpu_decode(), logits[:, :n].cpu(), what)
+
+
+def phase_llama_decode(dev, kv_bit_width, w4a8=False) -> dict:
     """64 greedy decode steps at batch 16 against a 1024-position cache:
     int8 KV (kv_bit_width None) or int4-packed KV (kv_bit_width 4)."""
-    what = "llama_decode_int4kv" if kv_bit_width else "llama_decode_int8kv"
+    what = ("llama_w4a8_decode_" if w4a8 else "llama_decode_") + (
+        "int4kv" if kv_bit_width else "int8kv")
     vocab = LLAMA_DIMS["vocab_size"]
     rng = np.random.default_rng(0)
-    model = build_llama(dev, rng.integers(0, vocab, (DECODE_BATCH, 64)), kv_bit_width)
+    model = build_llama(dev, rng.integers(0, vocab, (DECODE_BATCH, 64)), kv_bit_width,
+                        w4a8=w4a8)
     first = torch.from_numpy(rng.integers(0, vocab, (DECODE_BATCH, 1))).to(dev)
     with torch.no_grad():
         greedy_decode(model, first, DECODE_STEPS)  # warm-up
@@ -717,40 +827,24 @@ def phase_llama_decode(dev, kv_bit_width) -> dict:
         torch.cuda.synchronize()
         total_ms = (time.perf_counter() - t0) * 1e3
     counts = _launch_counts()
-    attn = counts["int4kv_decode_attention"]
     print(f"[{what}] {DECODE_STEPS} steps x batch {DECODE_BATCH}, cache {DECODE_MAX_LEN}: "
           f"launches {counts}")
-    if (counts["int8_matmul"] != 43 * DECODE_STEPS
-            or attn != (6 * DECODE_STEPS if kv_bit_width else 0)
-            or counts["int8_attention"] != 0):
-        raise AssertionError(f"{what}: expected 43 int8_matmul and "
-                             f"{6 if kv_bit_width else 0} int4kv_decode_attention "
-                             "launches per step")
+    expected = {"int8_attention": 0, **gemm_expect(w4a8, 43 * DECODE_STEPS),
+                "int4kv_decode_attention": 6 * DECODE_STEPS if kv_bit_width else 0}
+    if any(counts[k] != v for k, v in expected.items()):
+        raise AssertionError(f"{what}: expected launches {expected} over "
+                             f"{DECODE_STEPS} steps")
     if not torch.isfinite(logits).all():
         raise AssertionError(f"{what}: logits not finite")
 
     # the check: the first steps again on a fresh cache, the attention twins
     # recorded, then a CPU copy fed the same tokens, free-running and with
     # the card's attention outputs replayed
-    n = DECODE_CHECK_SEQS
-    tap = AttentionTap(model, n)
+    tap = AttentionTap(model, DECODE_CHECK_SEQS)
     with torch.no_grad():
         fed, logits = greedy_decode(model, first, DECODE_CHECK_STEPS)
     tap.detach()
-    cpu_model = copy.deepcopy(model).to("cpu")
-
-    def cpu_decode():
-        caches, out = cpu_model.init_decode_caches(n, DECODE_MAX_LEN), []
-        for pos in range(DECODE_CHECK_STEPS):
-            y, caches = cpu_model.decode_step(fed[pos, :n].cpu(), caches, pos)
-            out.append(y[:, 0])
-        return torch.stack(out)
-
-    with torch.no_grad():
-        compare_logits(logits[:, :n].cpu(), cpu_decode(), what)
-        replay = AttentionTap(cpu_model, n, replay=tap.record)
-        check_replay(replay, cpu_decode(), logits[:, :n].cpu(), what)
-    del cpu_model
+    check_decode(model, tap, fed, logits, DECODE_MAX_LEN, what)
 
     out = {"ms_per_step": total_ms / DECODE_STEPS,
            "tokens_per_s": DECODE_BATCH * DECODE_STEPS / total_ms * 1e3, "launches": counts}
@@ -764,6 +858,53 @@ def phase_llama_decode(dev, kv_bit_width) -> dict:
     prof = profile_steps(eight_steps, what, "8 steps")
     out["profile"] = prof
     return out
+
+
+def phase_serve_decode(dev) -> dict:
+    """examples.serve --decode at its defaults, int8 and int4-packed KV: the
+    launches of its warm-up and three timed generations, then the model it
+    timed checked as in phase_llama_decode: its greedy logits over the
+    whole generation against a CPU copy, all sequences."""
+    from brevitas_tpu_torch.examples import serve
+
+    outs = {}
+    steps = SERVE_DECODE["tokens"]
+    for kv_bits in (0, 4):
+        what = f"serve_decode_kv{kv_bits or 8}"
+        argv = ["--decode", "--decode-tokens", str(steps),
+                "--decode-batch", str(SERVE_DECODE["batch"]),
+                "--decode-dim", str(SERVE_DECODE["dim"]), "--device", str(dev)]
+        argv += ["--kv-bits", str(kv_bits)] if kv_bits else []
+        _reset_launch_counts()
+        out, model, first, max_len = serve.decode_demo(serve.parse_args(argv))
+        counts = _launch_counts()
+        runs = 4 * steps  # a warm-up and three timed generations
+        per_step = SERVE_DECODE_BLOCKS * (4 + 2) + 1
+        expected = {"int8_matmul": per_step * runs, "int4_matmul": 0, "int8_attention": 0,
+                    "int4kv_decode_attention": SERVE_DECODE_BLOCKS * runs if kv_bits else 0}
+        print(f"[{what}] launches {counts} over {runs} steps")
+        if any(counts[k] != v for k, v in expected.items()):
+            raise AssertionError(f"{what}: expected launches {expected}")
+
+        tap = AttentionTap(model, SERVE_DECODE["batch"])
+        with torch.no_grad():
+            fed, logits = greedy_decode(model, first, steps, max_len)
+        tap.detach()
+        with torch.no_grad():
+            served = model.generate(first, steps, max_len)
+        if not torch.equal(logits.argmax(-1).T, served):
+            raise AssertionError(f"{what}: the served tokens differ from the argmaxes of "
+                                 "the checked logits")
+        check_decode(model, tap, fed, logits, max_len, what)
+
+        def eight_steps():
+            greedy_decode(model, first, 8, max_len)
+            torch.cuda.synchronize()
+
+        out["profile"] = profile_steps(eight_steps, what, "8 steps")
+        out["launches"] = counts
+        outs[what] = out
+    return outs
 
 
 def kernel_summary(rows, name, m, launches, source, replaces, library_note=None):
@@ -789,13 +930,15 @@ def kernel_summary(rows, name, m, launches, source, replaces, library_note=None)
     return entry
 
 
-def llama_gemm_sums(rows, m: int) -> dict:
-    """int8_matmul's times over one Llama forward (prefill, M = 4096) or one
+def llama_gemm_sums(rows, m: int, kernel: str = "int8_matmul") -> dict:
+    """A GEMM kernel's times over one Llama forward (prefill, M = 4096) or one
     decode step (M = 16): its 43 launches at their shapes."""
-    per_kn = {(r["k"], r["n"]): r for r in rows if r["kernel"] == "int8_matmul"
-              and r["m"] == m}
+    per_kn = {(r["k"], r["n"]): r for r in rows if r["kernel"] == kernel and r["m"] == m}
     sums = {key: sum(per_kn[kn][key] * c for kn, c in LLAMA_KN_COUNT.items())
-            for key in ("ms", "plain_ms", "bound_ms")}
+            for key in ("ms", "plain_ms", "bound_ms", "call_ms")}
+    by = {b: sum(per_kn[kn]["bound_ms"] * c for kn, c in LLAMA_KN_COUNT.items()
+                 if per_kn[kn]["bound_by"] == b) for b in ("bytes", "operations")}
+    sums["bound_by"] = max(by, key=by.get)
     libs = [per_kn[kn]["library_ms"] for kn in LLAMA_KN_COUNT]
     sums["library_ms"] = None if None in libs else sum(
         per_kn[kn]["library_ms"] * c for kn, c in LLAMA_KN_COUNT.items())
@@ -832,16 +975,40 @@ def main() -> int:
     print(f"[kernels] bounds from the {sheet} data sheet: {peaks[0] / 1e12} TB/s, "
           f"{peaks[1] / 1e12} int8 TOP/s, {peaks[2] / 1e12} bf16 TFLOP/s")
     rows = phase_kernels(dev, peaks)
+    rows += phase_int4_kernel(dev, peaks)
     attn_rows = phase_attention_kernels(dev, peaks)
     serve_out, serve_int8 = phase_serve(dev)
     lfc_launches = phase_lfc(dev)
     prefill = phase_llama_prefill(dev)
     decode = {"int8kv": phase_llama_decode(dev, None), "int4kv": phase_llama_decode(dev, 4)}
+    w4a8_prefill = phase_llama_prefill(dev, w4a8=True)
+    w4a8_decode = phase_llama_decode(dev, None, w4a8=True)
+    serve_decode = phase_serve_decode(dev)
 
     int8_by_path = {"serve": serve_int8, "lfc8": lfc_launches["int8_matmul"],
                     "llama_prefill": prefill["launches"]["int8_matmul"],
                     **{f"llama_decode_{k}": v["launches"]["int8_matmul"]
-                       for k, v in decode.items()}}
+                       for k, v in decode.items()},
+                    **{k: v["launches"]["int8_matmul"] for k, v in serve_decode.items()}}
+    int4_by_path = {"llama_w4a8_prefill": w4a8_prefill["launches"]["int4_matmul"],
+                    "llama_w4a8_decode": w4a8_decode["launches"]["int4_matmul"]}
+    int4_decode = llama_gemm_sums(rows, DECODE_BATCH, "int4_matmul")
+    int4_entry = {
+        "name": "int4_matmul", "route": "cuda",
+        "source": "brevitas_tpu_torch/csrc/int4_matmul.cu",
+        "replaces": "brevitas_tpu/kernels/int4.py:126",
+        "launches": sum(int4_by_path.values()),
+        "max_abs_err": max(r["err"] for r in rows if r["kernel"] == "int4_matmul"),
+        "ms": int4_decode["ms"], "plain_ms": int4_decode["plain_ms"],
+        "call_ms": int4_decode["call_ms"], "bound_ms": int4_decode["bound_ms"],
+        "bound_by": int4_decode["bound_by"], "library_ms": None,
+        "library_note": "one W4A8 decode step (43 launches at M 16): torch._int_mm needs "
+                        "M > 16, and no PyTorch call takes packed int4 weights",
+        "per": "one W4A8 Llama decode step: 43 launches at M 16",
+        "launches_by_path": int4_by_path,
+        "llama_prefill_forward": llama_gemm_sums(rows, PREFILL_BATCH * PREFILL_T,
+                                                 "int4_matmul"),
+    }
     int8_entry = kernel_summary(rows, "int8_matmul", SERVE_BATCH, sum(int8_by_path.values()),
                                 "brevitas_tpu_torch/csrc/int8_matmul.cu",
                                 "brevitas_tpu/kernels/int_matmul.py:90",
@@ -854,23 +1021,31 @@ def main() -> int:
         r["max_err"] = max(x["err"] for x in attn_rows if x["kernel"] == r["kernel"])
     report = {"kernels": [
         int8_entry,
+        int4_entry,
         kernel_summary(rows, "int4_weight_only_matmul", LFC_BATCH,
                        lfc_launches["int4_weight_only_matmul"],
                        "brevitas_tpu_torch/csrc/int4_weight_only_matmul.cu",
                        "brevitas_tpu/kernels/int4.py:229"),
         attention_summary(attn_rows[0], "int8_attention",
-                          prefill["launches"]["int8_attention"],
+                          prefill["launches"]["int8_attention"]
+                          + w4a8_prefill["launches"]["int8_attention"],
                           "brevitas_tpu_torch/csrc/int8_attention.cu",
                           "brevitas_tpu/kernels/int8_attention.py:98"),
         attention_summary(next(r for r in attn_rows if r.get("pos") == DECODE_STEPS - 1),
                           "int4kv_decode_attention",
-                          decode["int4kv"]["launches"]["int4kv_decode_attention"],
+                          decode["int4kv"]["launches"]["int4kv_decode_attention"]
+                          + serve_decode["serve_decode_kv4"]["launches"][
+                              "int4kv_decode_attention"],
                           "brevitas_tpu_torch/csrc/int4kv_decode_attention.cu",
                           "brevitas_tpu/kernels/int8_attention.py:324"),
     ], "serve": serve_out,
         "llama_prefill": {k: v for k, v in prefill.items() if k != "profile"},
         "llama_decode": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
                          for k, v in decode.items()},
+        "llama_w4a8_prefill": {k: v for k, v in w4a8_prefill.items() if k != "profile"},
+        "llama_w4a8_decode": {k: v for k, v in w4a8_decode.items() if k != "profile"},
+        "serve_decode": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
+                         for k, v in serve_decode.items()},
         "seconds": time.perf_counter() - t0}
     print(f"[done] {report['seconds']:.1f} s")
     print(json.dumps(report))
