@@ -5,8 +5,12 @@ dot path (``"hidden.0.weight"``, ``"hidden.1.mean"``,
 ``"hidden.0.input_quant.scaling.counter"``, ...); the port never sees JAX.
 The port's modules carry the JAX package's names, so each key walks to the
 same tensor here. QuantLinear weights are transposed from the JAX (in, out)
-layout to torch's (out, in). The JAX model's random-number state
-(``rngs.*``) has no counterpart and is skipped.
+layout to torch's (out, in), and so is an ``nnx.Linear``'s ``kernel``, which
+fills a ``torch.nn.Linear``'s ``weight``. A module that the JAX model shares
+between several places (QuantLSTM's hidden-state and cell-state quantizers)
+appears once in its state, at its first path, and fills the one module the
+port shares the same way. The JAX model's random-number state (``rngs.*``)
+has no counterpart and is skipped.
 """
 
 from typing import Dict
@@ -26,11 +30,14 @@ def load_jax_state(model: nn.Module, arrays: Dict[str, np.ndarray]) -> nn.Module
             continue
         owner_path, _, name = path.rpartition(".")
         owner = model.get_submodule(owner_path)
+        transpose = isinstance(owner, QuantLinear) and name == "weight"
+        if isinstance(owner, nn.Linear) and name == "kernel":
+            name, transpose = "weight", True
         target = getattr(owner, name, None)
         if not isinstance(target, torch.Tensor):
             raise KeyError(f"{path} has no tensor in {type(model).__name__}")
         value = torch.as_tensor(np.array(array))
-        if isinstance(owner, QuantLinear) and name == "weight":
+        if transpose:
             value = value.t()
         if tuple(value.shape) != tuple(target.shape):
             raise ValueError(f"{path}: shape {tuple(value.shape)} does not match "

@@ -1,6 +1,6 @@
-"""Serving kernels (port of ``brevitas_tpu/kernels``; ported: ``int8_matmul``,
-``int4_matmul``, ``int4_weight_only_matmul``, ``int8_attention`` and
-``int4kv_decode_attention``).
+"""Kernels (port of ``brevitas_tpu/kernels``; ported: ``int8_matmul``,
+``int4_matmul``, ``int4_weight_only_matmul``, ``int8_attention``,
+``int4kv_decode_attention`` and ``quant_lstm_cell`` with its backward).
 
 Each wrapper launches its hand-written CUDA kernel (``csrc/``) on a CUDA
 tensor, raises if it cannot, and takes the plain PyTorch version beside it
@@ -27,6 +27,12 @@ from brevitas_tpu_torch.kernels.int8_attention import (
     update_kv_packed,
 )
 from brevitas_tpu_torch.kernels.int_matmul import int8_matmul, int8_matmul_reference
+from brevitas_tpu_torch.kernels.lstm_cell import (
+    quant_lstm_cell,
+    quant_lstm_cell_backward,
+    quant_lstm_cell_backward_reference,
+    quant_lstm_cell_reference,
+)
 
 __all__ = ["int8_matmul", "int8_matmul_reference", "int4_matmul",
            "int4_matmul_reference", "int4_weight_only_matmul",
@@ -34,4 +40,6 @@ __all__ = ["int8_matmul", "int8_matmul_reference", "int4_matmul",
            "unpack_int4_rows", "int8_attention", "int8_attention_reference",
            "int8_attention_dispatch", "int8_decode_attention",
            "int4kv_decode_attention", "int4kv_decode_attention_reference",
-           "pack_kv_halves", "unpack_kv_halves", "update_kv_packed"]
+           "pack_kv_halves", "unpack_kv_halves", "update_kv_packed", "quant_lstm_cell",
+           "quant_lstm_cell_reference", "quant_lstm_cell_backward",
+           "quant_lstm_cell_backward_reference"]

@@ -6,7 +6,9 @@ from brevitas_tpu_torch.ops.numeric import (
     causal_mask,
     max_int,
     min_int,
+    sigmoid_f64,
     softmax,
+    tanh_f64,
     tensor_clamp,
 )
 from brevitas_tpu_torch.ops.ste import (
@@ -17,6 +19,6 @@ from brevitas_tpu_torch.ops.ste import (
     tensor_clamp_ste,
 )
 
-__all__ = ["MASKED_SCORE", "causal_mask", "max_int", "min_int", "softmax",
+__all__ = ["MASKED_SCORE", "causal_mask", "max_int", "min_int", "sigmoid_f64", "softmax", "tanh_f64",
            "tensor_clamp", "round_ste", "ceil_ste", "tensor_clamp_ste",
            "scalar_clamp_min_ste", "abs_binary_sign_grad"]

@@ -37,6 +37,22 @@ def min_int(signed: bool, narrow_range: bool, bit_width: Number) -> Number:
     return 0.0
 
 
+def sigmoid_f64(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))`` formed in float64 and rounded once to ``x``'s
+    type. float32 sigmoids differ in the last bit between torch on the CPU,
+    torch on the card and XLA; the float64 form rounded once is the same on
+    the CPU and the card except where a value lies within a float64 ulp of a
+    float32 rounding boundary, and a CUDA kernel that forms it the same way
+    (``csrc/quant_lstm_cell.cu``) agrees with it bit for bit on the card."""
+    x64 = x.double()
+    return torch.reciprocal(1.0 + torch.exp(-x64)).to(x.dtype)
+
+
+def tanh_f64(x: torch.Tensor) -> torch.Tensor:
+    """tanh formed in float64 and rounded once, as :func:`sigmoid_f64`."""
+    return torch.tanh(x.double()).to(x.dtype)
+
+
 def softmax(x: torch.Tensor) -> torch.Tensor:
     """Softmax over the last axis as ``jax.nn.softmax`` forms it:
     ``exp(x - max) / sum``, a division; torch's own softmax multiplies by

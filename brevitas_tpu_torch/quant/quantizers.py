@@ -1,11 +1,14 @@
 """Quantizer modules — the stateful resolution of a QuantConfig (port of
 ``brevitas_tpu/quant/quantizers.py``).
 
-Ported: CONST bit-width; CONST scaling, STATS scaling of weights
-(``StatsScaling``) and two-phase PARAMETER_FROM_STATS scaling of activations
-(``ParameterFromRuntimeStatsScaling``); ZERO zero-point; quant delay; the
-INT/NONE weight quantizer, per-tensor or per output channel, and activation
-quantizer, per-tensor, signed or unsigned; the NONE bias quantizer; and the
+Ported: CONST bit-width; CONST scaling, learned PARAMETER scaling
+(``ParameterScaling``), STATS scaling of weights (``StatsScaling``) and
+two-phase PARAMETER_FROM_STATS scaling of activations
+(``ParameterFromRuntimeStatsScaling``) with its migration to a learned
+parameter (``convert_runtime_stats_to_parameter``); ZERO zero-point; quant
+delay; the INT/NONE weight quantizer, per-tensor or per output channel, and
+activation quantizer, per-tensor, signed or unsigned, with its static grid
+(``ActQuantizer.static_int_params``); the NONE bias quantizer; and the
 ``disable_quant`` switch that calibration mode sets. Configs that need
 anything else raise ``NotImplementedError``.
 
@@ -15,6 +18,7 @@ so the port branches in Python on the same counter, with the same buffer,
 value and handoff semantics. Train/eval is ``nn.Module.training``.
 """
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -109,6 +113,22 @@ class ConstScaling(nn.Module):
         return self.rc.forward(self.stored)
 
 
+class ParameterScaling(nn.Module):
+    """Learned scale, stored as a parameter in the restricted domain."""
+
+    def __init__(self, cfg: QuantConfig, init, bshape: Tuple[int, ...] = ()):
+        super().__init__()
+        self.rc = _RestrictClamp(cfg)
+        init = torch.as_tensor(self.rc.preprocess(init), dtype=torch.float32).detach()
+        if tuple(init.shape) != tuple(bshape):
+            init = (init.reshape(bshape) if init.numel() == math.prod(bshape)
+                    else init.reshape(()).expand(bshape))
+        self.value = nn.Parameter(init.clone())
+
+    def forward(self, stats_input: Optional[torch.Tensor]) -> torch.Tensor:
+        return abs_binary_sign_grad(self.rc.forward(self.value))
+
+
 class StatsScaling(nn.Module):
     """Stateless scale from the current statistics of the weight: the
     default weight path, whose gradients flow through the stats op."""
@@ -186,9 +206,9 @@ class ParameterFromRuntimeStatsScaling(nn.Module):
 
 def build_scaling(cfg: QuantConfig, bshape: Tuple[int, ...],
                   init_stats_input: Optional[torch.Tensor] = None) -> nn.Module:
-    """Resolve ScalingImplType into a scaling module. Ported: CONST, STATS
-    of a parameter (``init_stats_input`` given) and PARAMETER_FROM_STATS
-    collected at run time."""
+    """Resolve ScalingImplType into a scaling module. Ported: CONST,
+    PARAMETER, STATS of a parameter (``init_stats_input`` given) and
+    PARAMETER_FROM_STATS collected at run time."""
     impl = ScalingImplType(cfg.scaling_impl)
     if impl == ScalingImplType.CONST:
         if cfg.scaling_const is None:
@@ -196,6 +216,14 @@ def build_scaling(cfg: QuantConfig, bshape: Tuple[int, ...],
         return ConstScaling(cfg, cfg.scaling_const, bshape)
     stats_fn = S.stats_fn(cfg.scaling_stats_op,
                           high_percentile_q=cfg.high_percentile_q)
+    if impl == ScalingImplType.PARAMETER:
+        if cfg.scaling_const is not None:
+            init = torch.full(bshape, float(cfg.scaling_const))
+        elif init_stats_input is not None:
+            init = _expand(stats_fn(init_stats_input), bshape)
+        else:
+            init = torch.ones(bshape)
+        return ParameterScaling(cfg, init, bshape)
     if impl == ScalingImplType.STATS and init_stats_input is not None:
         return StatsScaling(cfg, stats_fn, bshape)
     if impl == ScalingImplType.PARAMETER_FROM_STATS and init_stats_input is None:
@@ -298,6 +326,26 @@ class ActQuantizer(nn.Module):
         self.zero_point = ZeroPoint(cfg)
         self.delay = QuantDelay(cfg.quant_delay_steps)
 
+    def static_int_params(self):
+        """``(scale, bit_width)`` when this INT quantizer's grid does not
+        depend on the data (CONST or learned PARAMETER scale, zero
+        zero-point, no delay); gradients flow through the scale into the
+        learned parameter. ``"identity"`` for a NONE quantizer, and None when
+        the quantizer carries per-call state (runtime statistics, the
+        two-phase collection, calibration mode): the caller must then call
+        the quantizer. Lets QuantLSTM fuse its per-step quantizer chain."""
+        if self.quant_type == QuantType.NONE:
+            return "identity"
+        cfg = self.cfg
+        if self.disable_quant or cfg.quant_delay_steps > 0:
+            return None
+        if not isinstance(self.scaling, (ConstScaling, ParameterScaling)):
+            return None
+        bit_width = self.bit_width_impl()
+        scale = Qf.rescaling_scale(self.scaling(None), bit_width, signed=cfg.signed,
+                                   narrow_range=cfg.narrow_range)
+        return scale, bit_width
+
     def forward(self, x: torch.Tensor) -> QuantTensor:
         cfg = self.cfg
         if self.quant_type == QuantType.NONE:
@@ -333,3 +381,26 @@ class BiasQuantizer(nn.Module):
     def forward(self, b: torch.Tensor, input_scale=None,
                 input_bit_width=None) -> QuantTensor:
         return QuantTensor(b)
+
+
+def convert_runtime_stats_to_parameter(root: nn.Module) -> int:
+    """Replace every two-phase scaler in the tree by a learned
+    ``ParameterScaling`` seeded from what it collected: its learned value
+    once the handoff happened (counter past ``collect_stats_steps``), its
+    statistics buffer before. The owning quantizer's config switches to
+    PARAMETER scaling. Returns the count converted; a quantizer shared by
+    several layers is converted once."""
+    count = 0
+    for mod in root.modules():
+        scaling = getattr(mod, "scaling", None)
+        cfg = getattr(mod, "cfg", None)
+        if cfg is None or not isinstance(scaling, ParameterFromRuntimeStatsScaling):
+            continue
+        post = int(scaling.counter) > scaling.steps
+        with torch.no_grad():
+            seed = scaling.rc.forward(scaling.value) if post else scaling.buffer
+            new_cfg = cfg.let(scaling_impl=ScalingImplType.PARAMETER)
+            mod.cfg = new_cfg
+            mod.scaling = ParameterScaling(new_cfg, seed, scaling.bshape)
+        count += 1
+    return count

@@ -56,7 +56,26 @@ Phases; any failure exits non-zero and prints no result:
              packed step. The model it timed decodes again on the card; its
              tokens equal the served ones, and its logits of all 32
              sequences over the 128 steps are checked as in 8.
-11. report - one {"kernels": [...]} line; the last line is
+11. lstm_kernels - quant_lstm_cell's forward and backward kernels at the
+             QuantLSTM QAT leg's shape (B 64, H 512) and an unaligned one (B 3,
+             H 100), gates and scales drawn so that every clamp is reached:
+             forward bit for bit against the plain version on the card;
+             dgates and dc within rtol 1e-5, atol 1e-6 of the plain version's
+             autograd; each scale gradient within 1e-5 * sum |term| of the
+             float64 sum of the plain version's per-element terms, and the
+             same bits on a second run. Times as above.
+12. lstm_qat - bench.py's quantlstm_int8_qat leg at full width: QuantLSTM(128,
+             512, num_layers=2) with the leg's quantizers and a Linear(512, 10)
+             head on y[:, -1]; one calibration forward (the module cell: no
+             cell kernel launch), convert_runtime_stats_to_parameter, then a
+             warm-up and 5 timed Adam steps (lr 1e-3, every parameter, the
+             learned scales included) at batch 64, sequence 64: 128 forward
+             and 128 backward cell launches a step. A copy made before the
+             first step runs the same steps through the module cell
+             (fused_cell = False): the first step's loss the same bits and
+             its weight gradients within 1e-4, each step's loss within 1e-3,
+             each weight's total update within 0.3 of its norm.
+13. report - one {"kernels": [...]} line; the last line is
              {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 The comparison with a CPU copy is made layer by layer, each serving layer of
@@ -70,7 +89,9 @@ of at least 90 % and max |diff| within 10 % of the largest logit, since a
 flipped code feeds the later positions and layers).
 """
 
+import contextlib
 import copy
+import gc
 import json
 import statistics
 import subprocess
@@ -96,6 +117,8 @@ PEAKS = {
     "H100 SXM": (3.35e12, 1979e12, 989e12),
     "H100 PCIe": (2.0e12, 1513e12, 756e12),
 }
+# the same data sheets' float32 and float64 rates outside the tensor cores
+VECTOR_PEAKS = {"H100 SXM": (67e12, 34e12), "H100 PCIe": (51e12, 26e12)}
 
 
 def peaks_for(name: str):
@@ -166,12 +189,16 @@ def phase_build():
                 print(f"[build] {name}: {line.strip()}")
 
 
+CARD = ["not read"]  # nvidia-smi's name and power limit, printed beside timings
+
+
 def phase_card() -> str:
     line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     print("[card] nvidia-smi name, power.limit:")
     print(line)
+    CARD[0] = line
     return line
 
 
@@ -505,6 +532,7 @@ def phase_serve(dev):
     _reset_launch_counts()
     out = serve.main(["--requests", "512", "--batch-size", str(SERVE_BATCH)])
     counts = _launch_counts()
+    _record_path("serve", counts)
     n8, n4 = counts["int8_matmul"], counts["int4_weight_only_matmul"]
     expected = 4 * (out["batches"] + 1)
     print(f"[serve] int8_matmul launches {n8} (expected {expected} = 4 x "
@@ -546,6 +574,7 @@ def phase_lfc(dev):
             model(torch.from_numpy(batch).to(dev))
         torch.cuda.synchronize()
         counts = _launch_counts()
+        _record_path(f"lfc{bits}", counts)
         print(f"[lfc] {bits}-bit batch {LFC_BATCH}: launches {counts}")
         if counts[kernel] != 4 or sum(counts.values()) != 4:
             raise AssertionError(f"lfc {bits}-bit: expected 4 {kernel} launches")
@@ -562,7 +591,17 @@ def _launch_counts():
             "int4_matmul": K.int4_matmul.launches,
             "int4_weight_only_matmul": K.int4_weight_only_matmul.launches,
             "int8_attention": K.int8_attention.launches,
-            "int4kv_decode_attention": K.int4kv_decode_attention.launches}
+            "int4kv_decode_attention": K.int4kv_decode_attention.launches,
+            "quant_lstm_cell": K.quant_lstm_cell.launches,
+            "quant_lstm_cell_backward": K.quant_lstm_cell_backward.launches}
+
+
+# every kernel's launches on each main path, as each phase read them
+PATH_COUNTS = {}
+
+
+def _record_path(path: str, counts: dict) -> None:
+    PATH_COUNTS[path] = dict(counts)
 
 
 def _reset_launch_counts():
@@ -691,14 +730,14 @@ def compare_logits(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
         raise AssertionError(f"{what}: logits disagree with the CPU copy")
 
 
-def profile_steps(fn, what: str, unit: str, n: int = 3) -> dict:
+def profile_steps(fn, what: str, unit: str, n: int = 3, grad: bool = False) -> dict:
     """Device busy time by kernel from torch.profiler over ``n`` calls of
     ``fn`` (each ending in a synchronize), beside their wall time; the rest
-    of the wall time the card is idle."""
+    of the wall time the card is idle. ``grad``: ``fn`` is a training step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
+    with contextlib.nullcontext() if grad else torch.no_grad():
         fn()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -737,6 +776,7 @@ def phase_llama_prefill(dev, w4a8=False) -> dict:
         logits = model(ids)
     torch.cuda.synchronize()
     counts = _launch_counts()
+    _record_path(what, counts)
     tap.detach()
     print(f"[{what}] {PREFILL_BATCH} x {PREFILL_T} causal: launches {counts}")
     expected = {"int8_attention": 6, **gemm_expect(w4a8, 43)}
@@ -827,6 +867,7 @@ def phase_llama_decode(dev, kv_bit_width, w4a8=False) -> dict:
         torch.cuda.synchronize()
         total_ms = (time.perf_counter() - t0) * 1e3
     counts = _launch_counts()
+    _record_path(what, counts)
     print(f"[{what}] {DECODE_STEPS} steps x batch {DECODE_BATCH}, cache {DECODE_MAX_LEN}: "
           f"launches {counts}")
     expected = {"int8_attention": 0, **gemm_expect(w4a8, 43 * DECODE_STEPS),
@@ -878,6 +919,7 @@ def phase_serve_decode(dev) -> dict:
         _reset_launch_counts()
         out, model, first, max_len = serve.decode_demo(serve.parse_args(argv))
         counts = _launch_counts()
+        _record_path(what, counts)
         runs = 4 * steps  # a warm-up and three timed generations
         per_step = SERVE_DECODE_BLOCKS * (4 + 2) + 1
         expected = {"int8_matmul": per_step * runs, "int4_matmul": 0, "int8_attention": 0,
@@ -905,6 +947,397 @@ def phase_serve_decode(dev) -> dict:
         out["launches"] = counts
         outs[what] = out
     return outs
+
+
+# bench.py's quantlstm_int8_qat leg (bench.py:427-491): QuantLSTM(128, 512,
+# num_layers=2) and a Linear(512, 10) head on y[:, -1], batch 64, sequence 64
+LSTM_LEG = dict(feat=128, hidden=512, layers=2, batch=64, seq=64)
+LSTM_TIMED_STEPS = 5
+LSTM_LR = 1e-3
+# (B, H) of the cell kernels' checks: the leg's, and one off every tile
+LSTM_KERNEL_SHAPES = [(64, 512), (3, 100)]
+# the leg's six stages (acc, sigmoid, tanh_g, cell, tanh_h, hidden): int8,
+# the sigmoid uint8
+LSTM_BOUNDS = ((-128, 127), (0, 255), (-128, 127), (-128, 127), (-128, 127), (-128, 127))
+LSTM_SCALE_SUM_RTOL = 1e-5  # of sum |term|, against the float64 sum of the terms
+LSTM_LOSS_RTOL = 1e-3       # kernel path against module cell, each step's loss
+LSTM_UPDATE_RTOL = 0.3      # |update difference| / |update| of each weight
+LSTM_CELL_SCALE_GRAD_RTOL = 1e-4  # of the largest cell-scale gradient, first step
+
+
+def lstm_cell_inputs(dev, b: int, h: int, seed: int):
+    """Gates, state, scales and upstream gradients of one cell step, drawn so
+    that every stage's clamp is reached: |gates| beyond 127 * sa, 255 * ss
+    and 127 * st below 1, |f c + i g| beyond 127 * sc, 127 * sth below 1,
+    127 * sh below the largest o * th."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+
+    gates = torch.randn((b, 4 * h), generator=g, device=dev) * 4
+    c = torch.randn((b, h), generator=g, device=dev) * 2
+    scales = (uniform(4 * h, 0.01, 0.05), uniform(3 * h, 0.002, 0.006),
+              *(torch.tensor(v, device=dev) for v in (0.005, 0.015, 0.005, 0.003)))
+    dh = torch.randn((b, h), generator=g, device=dev)
+    dcn = torch.randn((b, h), generator=g, device=dev)
+    return gates, c, scales, dh, dcn
+
+
+def phase_lstm_kernels(dev, vector_peaks, bw) -> list:
+    """quant_lstm_cell's forward and backward kernels against their plain
+    versions on the card, and timed. Returns one row per (kernel, shape)."""
+    from brevitas_tpu_torch.kernels import (
+        quant_lstm_cell,
+        quant_lstm_cell_backward,
+        quant_lstm_cell_backward_reference,
+        quant_lstm_cell_reference,
+    )
+    from brevitas_tpu_torch.kernels.lstm_cell import quant_lstm_cell_scale_terms
+
+    f32_peak, f64_peak = vector_peaks
+    rows = []
+    print("[lstm_kernels] kernel B H | kernel_ms plain_ms bound_ms bound_by | max_abs_err "
+          "| checks (no PyTorch call computes this function: library_ms null)")
+    for b, h in LSTM_KERNEL_SHAPES:
+        gates, c, scales, dh, dcn = lstm_cell_inputs(dev, b, h, seed=b * h)
+        args = (gates, c, *scales)
+        # the plain version's per-element scale-gradient terms, and each
+        # stage's values before rounding
+        terms, _, pre, fwd = quant_lstm_cell_scale_terms(*args, dh, dcn, LSTM_BOUNDS)
+        shares = [float(((torch.round(x) < lo) | (torch.round(x) > hi)).float().mean())
+                  for x, (lo, hi) in zip(pre, LSTM_BOUNDS)]
+        if min(shares) == 0:
+            raise AssertionError(f"lstm_kernels: a clamp is never reached at {(b, h)}: {shares}")
+        with torch.no_grad():
+            h_k, c_k = quant_lstm_cell(*args, LSTM_BOUNDS)
+            h_r, c_r = quant_lstm_cell_reference(*args, LSTM_BOUNDS)
+        torch.cuda.synchronize()
+        if not (torch.equal(h_k, h_r) and torch.equal(c_k, c_r)):
+            raise AssertionError(
+                f"quant_lstm_cell differs from its plain version at {(b, h)}: h "
+                f"{int((h_k != h_r).sum())}, c_new {int((c_k != c_r).sum())} of {h_r.numel()}")
+        fwd_err = max(float((h_k - h_r).abs().max()), float((c_k - c_r).abs().max()))
+
+        got = quant_lstm_cell_backward(*args, dh, dcn, LSTM_BOUNDS)
+        again = quant_lstm_cell_backward(*args, dh, dcn, LSTM_BOUNDS)
+        want = quant_lstm_cell_backward_reference(*args, dh, dcn, LSTM_BOUNDS)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"quant_lstm_cell_backward: two runs differ at {(b, h)}")
+        for name, k_, r_ in (("dgates", got[0], want[0]), ("dc", got[1], want[1])):
+            if not torch.allclose(k_, r_, rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"quant_lstm_cell_backward {name} at {(b, h)}: max "
+                                     f"{float((k_ - r_).abs().max())}")
+        bwd_err = max(float((k_ - r_).abs().max()) for k_, r_ in zip(got[:2], want[:2]))
+        # each scale's gradient against the float64 sum of those terms
+        if not (torch.equal(fwd[0], h_r) and torch.equal(fwd[1], c_r)):
+            raise AssertionError("lstm_kernels: the staged plain forward differs")
+        worst = worst_plain = 0.0
+        for name, k_, r_, t_ in zip(("dsa", "dss", "dst", "dsc", "dsth", "dsh"),
+                                    got[2:], want[2:], terms):
+            dims = (0,) if t_.shape[1] == k_.numel() else (0, 1)
+            exact, mass = t_.sum(dims), t_.abs().sum(dims)
+            dev_k = (k_.double().reshape(exact.shape) - exact).abs()
+            dev_r = (r_.double().reshape(exact.shape) - exact).abs()
+            ratio = float((dev_k / mass.clamp_min(1e-300)).max())
+            worst = max(worst, ratio)
+            worst_plain = max(worst_plain, float((dev_r / mass.clamp_min(1e-300)).max()))
+            if not bool((dev_k <= LSTM_SCALE_SUM_RTOL * mass).all()):
+                raise AssertionError(f"quant_lstm_cell_backward {name} at {(b, h)}: "
+                                     f"|kernel - f64| / sum|term| = {ratio:.3g}")
+        print(f"[lstm_kernels] ({b}, {h}): forward bit for bit; backward dgates/dc max |diff| "
+              f"{bwd_err:.3g}, scale sums max |kernel - f64| / sum|term| {worst:.3g} (plain "
+              f"version {worst_plain:.3g}), same bits on a second run; clamped shares per "
+              f"stage {[round(x, 4) for x in shares]}")
+
+        with torch.no_grad():
+            t_fk = cuda_ms(lambda: quant_lstm_cell(*args, LSTM_BOUNDS))
+            t_fp = cuda_ms(lambda: quant_lstm_cell_reference(*args, LSTM_BOUNDS))
+        t_bk = cuda_ms(lambda: quant_lstm_cell_backward(*args, dh, dcn, LSTM_BOUNDS))
+        t_bp = cuda_ms(lambda: quant_lstm_cell_backward_reference(*args, dh, dcn, LSTM_BOUNDS))
+        el, n_scales = b * h, 7 * h + 4
+        # bytes: each input read once, each output written once; operations
+        # per element as written (forward: 7 stages of divide, round, multiply
+        # and 4 products or sums in float32, 3 sigmoids of exp, add and
+        # reciprocal and 2 tanh in float64; the backward recomputes it and
+        # adds about as many again)
+        for name, t_k, t_p, nbytes, n32, n64, err in (
+                ("quant_lstm_cell", t_fk, t_fp, 4 * (7 * el + n_scales), 25, 11, fwd_err),
+                ("quant_lstm_cell_backward", t_bk, t_bp, 4 * (12 * el + 2 * n_scales), 70, 22,
+                 bwd_err)):
+            t_bytes = nbytes / bw * 1e3
+            t_ops = el * (n32 / f32_peak + n64 / f64_peak) * 1e3
+            t_b, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            rows.append(dict(kernel=name, b=b, h=h, ms=t_k, plain_ms=t_p, bound_ms=t_b,
+                             bound_by=by, err=err, bytes=nbytes, scale_sum_ratio=worst))
+            print(f"[lstm_kernels] {name} {b} {h} | {t_k:.4f} {t_p:.4f} {t_b:.3g} {by} | "
+                  f"{err:.3g}")
+    return rows
+
+
+def check_scale_routing(dev, layer) -> float:
+    """The backward kernel's scale gradients routed to one layer's learned
+    scales (``_QuantLSTMCell.backward``, ``_grad_like`` and the expand of
+    the 4 accumulator and 3 sigmoid gate scales over their gate blocks, as
+    the layer's ``_fused_cell_params`` builds them): one cell step on the
+    card at the leg's shape, against the float64 sum of the plain version's
+    terms over each scale's block, within LSTM_SCALE_SUM_RTOL of the terms'
+    sum of magnitudes (the kernel rows' bound; the expand's backward adds a
+    float32 pairwise sum over H columns, about log2(H) roundings). A scale
+    fed the wrong gate's sum misses it by the size of a gate's gradient.
+    Returns the largest |grad - f64| / sum |term|, both taken to the
+    parameter through the quantizer's own d scale / d parameter."""
+    from brevitas_tpu_torch.kernels import quant_lstm_cell
+    from brevitas_tpu_torch.kernels.lstm_cell import quant_lstm_cell_scale_terms
+
+    h = layer.hidden_size
+    gates, c, _, dh, dcn = lstm_cell_inputs(dev, LSTM_LEG["batch"], h, seed=h + 1)
+    names = (("gate_acc", "forget_acc", "cell_acc", "out_acc"),  # gate blocks i, f, g, o
+             ("in_sigmoid", "forget_sigmoid", "out_sigmoid"),   # i, f, o
+             ("cell_tanh",), ("cell_state",), ("hidden_tanh",), ("hidden_state",))
+    params = [[getattr(layer.quants, n).scaling.value for n in group] for group in names]
+    for group in params:
+        for p in group:
+            p.grad = None
+    sa, ss, scalars, bounds = layer._kernel_cell_args(layer._fused_cell_params(),
+                                                      torch.float32)
+    torch.autograd.backward(quant_lstm_cell(gates, c, sa, ss, *scalars, bounds), (dh, dcn))
+    terms = quant_lstm_cell_scale_terms(gates, c, sa.detach(), ss.detach(),
+                                        *(x.detach() for x in scalars), dh, dcn, bounds)[0]
+    worst = 0.0
+    for term, group, group_names in zip(terms, params, names):
+        for g, (p, name) in enumerate(zip(group, group_names)):
+            block = term[:, g * h:(g + 1) * h] if len(group) > 1 else term
+            # d scale / d parameter of the quantizer's own scale function
+            # (the parameter is the threshold: scale = threshold / 2^(b-1))
+            scale = getattr(layer.quants, name).static_int_params()[0]
+            (dsdp,) = torch.autograd.grad(scale.sum(), p)
+            dsdp = dsdp.double().reshape(())
+            ratio = float((p.grad.double().reshape(()) - block.sum() * dsdp).abs()
+                          / (block.abs().sum() * dsdp.abs()).clamp_min(1e-300))
+            worst = max(worst, ratio)
+            if ratio > LSTM_SCALE_SUM_RTOL:
+                raise AssertionError(f"lstm_qat: the gradient of {name}'s scale misses its "
+                                     f"block's sum by {ratio:.3g} of sum |term|")
+            p.grad = None
+    return worst
+
+
+class LSTMModel(torch.nn.Module):
+    """bench.py's quantlstm_int8_qat model: QuantLSTM with the leg's
+    quantizers (8-bit activations, the sigmoids unsigned, statistics
+    collected for one step) and a Linear head on the last step's output."""
+
+    def __init__(self, dev, generator: torch.Generator):
+        from brevitas_tpu_torch.nn import QuantLSTM
+        from brevitas_tpu_torch.quant import presets
+
+        super().__init__()
+        act = presets.Int8ActPerTensorFloat.let(collect_stats_steps=1)
+        uact = presets.Uint8ActPerTensorFloat.let(collect_stats_steps=1)
+        hidden = LSTM_LEG["hidden"]
+        self.lstm = QuantLSTM(LSTM_LEG["feat"], hidden, num_layers=LSTM_LEG["layers"],
+                              io_quant=act, gate_acc_quant=act, sigmoid_quant=uact,
+                              tanh_quant=act, cell_state_quant=act, generator=generator,
+                              device=dev)
+        self.head = torch.nn.Linear(hidden, 10, device=dev)
+        with torch.no_grad():  # nnx.Linear's init: lecun-normal kernel, zero bias
+            self.head.weight.copy_(torch.randn((10, hidden), generator=generator)
+                                   / hidden ** 0.5)
+            self.head.bias.zero_()
+
+    def forward(self, x):
+        y, _ = self.lstm(x)
+        return self.head(y[:, -1])
+
+
+def lstm_train_step(model):
+    """An Adam step (lr 1e-3, every parameter) on softmax cross-entropy."""
+    opt = torch.optim.Adam(model.parameters(), lr=LSTM_LR)
+
+    def step(x, y):
+        opt.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def phase_lstm_qat(dev) -> dict:
+    """The leg's QAT step at full width: calibration, conversion to learned
+    scales, a warm-up and LSTM_TIMED_STEPS timed Adam steps through the cell
+    kernels, held against a copy that runs the module cell."""
+    from brevitas_tpu_torch.quant.quantizers import convert_runtime_stats_to_parameter
+
+    b, t, f = LSTM_LEG["batch"], LSTM_LEG["seq"], LSTM_LEG["feat"]
+    launches_per_step = LSTM_LEG["layers"] * t
+    gc.collect()  # the serving phases' models: keep their objects out of the step's time
+    model = LSTMModel(dev, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    calib = torch.from_numpy(rng.random((b, t, f), dtype=np.float32)).to(dev)
+    _reset_launch_counts()
+    with torch.no_grad():
+        model(calib)  # calibration: the quantizers collect, the module cell runs
+    torch.cuda.synchronize()
+    calib_counts = _launch_counts()
+    print(f"[lstm_qat] calibration forward: launches {calib_counts}")
+    if any(calib_counts.values()):
+        raise AssertionError("lstm_qat: the calibration forward launched a kernel")
+    converted = convert_runtime_stats_to_parameter(model)
+    for layer in model.lstm.layers:
+        if layer._kernel_cell_args(layer._fused_cell_params(), torch.float32) is None:
+            raise AssertionError("lstm_qat: a layer does not take the cell kernel")
+    routing = max(check_scale_routing(dev, layer) for layer in model.lstm.layers)
+    print(f"[lstm_qat] the backward kernel's scale sums reach each layer's 4 + 3 gate scales "
+          f"and 4 scalar scales: max |grad - f64| / sum|term| {routing:.3g} (bound "
+          f"{LSTM_SCALE_SUM_RTOL:g})")
+    plain = copy.deepcopy(model)
+    for layer in plain.lstm.layers:
+        layer.fused_cell = False
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    # the data as bench.py's _scanned_train draws it, for a warm-up and the timed steps
+    n_steps = 1 + LSTM_TIMED_STEPS
+    rng = np.random.default_rng(0)
+    xs = torch.from_numpy(rng.random((n_steps, b, t, f), dtype=np.float32)).to(dev)
+    ys = torch.from_numpy(rng.integers(0, 10, (n_steps, b))).to(dev)
+
+    # gradients of the first step, the same parameters on both paths: the
+    # forwards are the same bits, the backwards differ in rounding (the
+    # kernel's analytic backward against autograd through the module cell).
+    # A weight's gradient sums many terms of one sign pattern: within 1e-4 of
+    # its largest element. A cell quantizer's learned scale reaches the
+    # kernel path only through the backward kernel's sums, _grad_like and the
+    # per-gate expand back to the 4 + 3 gate scales: each within 1e-4 of the
+    # largest cell-scale gradient, since its terms g * (q - x / s) cancel to a
+    # remainder whose float32 error is set by the size of those terms, not by
+    # its own (a swapped gate or a misrouted sum moves a scale's gradient by
+    # its whole size). The layers' input quantizers are not in the cell.
+    grads, first_losses = [], []
+    for m in (model, plain):
+        m.zero_grad(set_to_none=True)
+        loss = torch.nn.functional.cross_entropy(m(xs[0]), ys[0])
+        loss.backward()
+        first_losses.append(float(loss.detach()))
+        grads.append({n: p.grad.clone() for n, p in m.named_parameters()})
+        m.zero_grad(set_to_none=True)
+    if first_losses[0] != first_losses[1]:
+        raise AssertionError(f"lstm_qat: first-step losses differ {first_losses}")
+    grad_dev = {n: float((g - grads[1][n]).abs().max()) / max(
+        float(grads[1][n].abs().max()), 1e-30) for n, g in grads[0].items()}
+    weight_dev = {n: v for n, v in grad_dev.items() if not n.endswith("scaling.value")}
+    worst_weight = max(weight_dev, key=weight_dev.get)
+    worst_scale = max((n for n in grad_dev if n not in weight_dev), key=grad_dev.get)
+    print(f"[lstm_qat] first-step loss the same bits on both paths ({first_losses[0]}); "
+          f"gradients, kernel path vs module cell, max|diff| / max|grad|: weights at most "
+          f"{weight_dev[worst_weight]:.3g} ({worst_weight}), learned scales at most "
+          f"{grad_dev[worst_scale]:.3g} ({worst_scale})")
+    if weight_dev[worst_weight] > 1e-4:
+        raise AssertionError(f"lstm_qat: gradient of {worst_weight} deviates")
+    cell_scales = [n for n in grad_dev if ".quants." in n and n.endswith("scaling.value")]
+    cell_max = max(float(grads[1][n].abs().max()) for n in cell_scales)
+    cell_dev = {n: float((grads[0][n] - grads[1][n]).abs().max()) / cell_max
+                for n in cell_scales}
+    worst_cell = max(cell_dev, key=cell_dev.get)
+    report = {n.replace("lstm.layers.", "").replace(".scaling.value", ""): (
+        float(f"{float(grads[1][n].abs().max()) / cell_max:.3g}"), float(f"{cell_dev[n]:.3g}"))
+        for n in cell_scales}
+    print(f"[lstm_qat] cell-scale gradients ({len(cell_scales)} learned scales), kernel path "
+          f"vs module cell, |diff| / {cell_max:.4g} (the largest): at most "
+          f"{cell_dev[worst_cell]:.3g} ({worst_cell}); each as (|grad|, |diff|) / largest: "
+          f"{report}")
+    if cell_dev[worst_cell] > LSTM_CELL_SCALE_GRAD_RTOL:
+        raise AssertionError(f"lstm_qat: gradient of {worst_cell} deviates")
+
+    step = lstm_train_step(model)
+    losses, times, total = [], [], None
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        losses.append(step(xs[i], ys[i]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = _launch_counts()
+        want = {k: launches_per_step if k.startswith("quant_lstm_cell") else 0 for k in counts}
+        if counts != want:
+            raise AssertionError(f"lstm_qat step {i}: launches {counts}, expected {want}")
+        total = counts if total is None else {k: total[k] + v for k, v in counts.items()}
+    _record_path("lstm_qat", total)
+    plain_step = lstm_train_step(plain)
+    plain_losses = [plain_step(xs[i], ys[i]) for i in range(n_steps)]
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    plain_losses = [float(x) for x in plain_losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"lstm_qat: losses {losses}")
+    # after the first step the paths start from parameters that differ in
+    # their last bits, so some of the millions of fake-quant codes a step
+    # rounds flip at .5 ties, and the gradients of the batch rows concerned
+    # change through the recurrence; Adam moves each coordinate by about lr
+    # a step whatever its gradient's size, so single coordinates drift apart
+    # by up to 2 lr a step. Held: each step's loss within 1e-3 relative, and
+    # each weight's total update (w_ih, w_hh, bias, head) within 0.3 of its
+    # size in norm (0.06-0.17 on an H100). A learned scale is one value whose
+    # gradient cancels to a remainder, so Adam's step can turn with a flip:
+    # its update deviations are reported only (the cell check bounds the
+    # sums).
+    loss_dev = max(abs(a - p) / abs(p) for a, p in zip(losses, plain_losses))
+    update_dev, param_max = {}, 0.0
+    for (n, p), (_, q) in zip(model.named_parameters(), plain.named_parameters()):
+        u_k, u_p = p.detach() - start[n], q.detach() - start[n]
+        update_dev[n] = float((u_k - u_p).norm() / u_p.norm().clamp_min(1e-30))
+        param_max = max(param_max, float((u_k - u_p).abs().max()))
+    weights = {n: v for n, v in update_dev.items() if not n.endswith("scaling.value")}
+    worst_update = max(weights, key=weights.get)
+    print(f"[lstm_qat] losses kernel path {losses}; module cell {plain_losses}; largest "
+          f"relative deviation {loss_dev:.3g}; after {n_steps} steps, |update difference| / "
+          f"|update|: weights at most {weights[worst_update]:.3g} ({worst_update}), learned "
+          f"scales at most {max(update_dev.values()):.3g}; largest |parameter diff| "
+          f"{param_max:.3g}; all { {k: float(f'{v:.3g}') for k, v in update_dev.items()} }")
+    if loss_dev > LSTM_LOSS_RTOL or weights[worst_update] > LSTM_UPDATE_RTOL:
+        raise AssertionError("lstm_qat: the kernel path and the module cell drift apart")
+    ms = statistics.median(times[1:])
+    out = {"ms_per_step": ms, "sequences_per_s": b / ms * 1e3, "step_ms": times,
+           "launches_per_step": launches_per_step, "launches": total,
+           "quantizers_converted": converted, "losses": losses, "plain_losses": plain_losses,
+           "loss_rel_dev": loss_dev, "param_max_dev": param_max,
+           "weight_update_rel_dev": weights[worst_update],
+           "scale_update_rel_dev": max(update_dev.values()),
+           "weight_grad_rel_dev": weight_dev[worst_weight],
+           "scale_grad_rel_dev": grad_dev[worst_scale],
+           "cell_scale_grad_dev": cell_dev[worst_cell], "scale_routing_dev": routing}
+    print(f"[lstm_qat] {ms:.3f} ms per training step (median of {LSTM_TIMED_STEPS}, host "
+          f"clock with synchronize): {out['sequences_per_s']:.1f} sequences/s, on {CARD[0]}")
+
+    def one_step():
+        step(xs[0], ys[0])
+        torch.cuda.synchronize()
+
+    out["profile"] = profile_steps(one_step, "lstm_qat", "training step", n=2, grad=True)
+    print(f"[lstm_qat] device idle share {out['profile']['idle_share']:.3f}, on {CARD[0]}")
+    return out
+
+
+def lstm_summary(rows, name, lstm, replaces):
+    """The cell kernel's row at the leg's shape; its launches over the QAT
+    phase's warm-up and timed steps."""
+    row = next(r for r in rows if r["kernel"] == name and (r["b"], r["h"]) == (64, 512))
+    return {
+        "name": name, "route": "cuda", "source": "brevitas_tpu_torch/csrc/quant_lstm_cell.cu",
+        "replaces": replaces, "launches": lstm["launches"][name],
+        "max_abs_err": max(r["err"] for r in rows if r["kernel"] == name),
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "library_note": "no PyTorch call computes this function (six fake-quant stages "
+                        "around the LSTM nonlinearities)",
+        "per": "one launch at B 64, H 512", "launches_per_step": lstm["launches_per_step"],
+        "unaligned_shape": {k: v for k, v in next(
+            r for r in rows if r["kernel"] == name and (r["b"], r["h"]) != (64, 512)).items()},
+    }
 
 
 def kernel_summary(rows, name, m, launches, source, replaces, library_note=None):
@@ -977,6 +1410,7 @@ def main() -> int:
     rows = phase_kernels(dev, peaks)
     rows += phase_int4_kernel(dev, peaks)
     attn_rows = phase_attention_kernels(dev, peaks)
+    lstm_rows = phase_lstm_kernels(dev, VECTOR_PEAKS[sheet], peaks[0])
     serve_out, serve_int8 = phase_serve(dev)
     lfc_launches = phase_lfc(dev)
     prefill = phase_llama_prefill(dev)
@@ -984,6 +1418,7 @@ def main() -> int:
     w4a8_prefill = phase_llama_prefill(dev, w4a8=True)
     w4a8_decode = phase_llama_decode(dev, None, w4a8=True)
     serve_decode = phase_serve_decode(dev)
+    lstm = phase_lstm_qat(dev)
 
     int8_by_path = {"serve": serve_int8, "lfc8": lfc_launches["int8_matmul"],
                     "llama_prefill": prefill["launches"]["int8_matmul"],
@@ -1038,6 +1473,9 @@ def main() -> int:
                               "int4kv_decode_attention"],
                           "brevitas_tpu_torch/csrc/int4kv_decode_attention.cu",
                           "brevitas_tpu/kernels/int8_attention.py:324"),
+        lstm_summary(lstm_rows, "quant_lstm_cell", lstm, "brevitas_tpu/kernels/lstm_cell.py:176"),
+        lstm_summary(lstm_rows, "quant_lstm_cell_backward", lstm,
+                     "brevitas_tpu/kernels/lstm_cell.py:224"),
     ], "serve": serve_out,
         "llama_prefill": {k: v for k, v in prefill.items() if k != "profile"},
         "llama_decode": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
@@ -1046,7 +1484,11 @@ def main() -> int:
         "llama_w4a8_decode": {k: v for k, v in w4a8_decode.items() if k != "profile"},
         "serve_decode": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
                          for k, v in serve_decode.items()},
+        "lstm_qat": {k: v for k, v in lstm.items() if k != "profile"},
         "seconds": time.perf_counter() - t0}
+    for entry in report["kernels"]:
+        entry["launches_by_path"] = {path: counts[entry["name"]]
+                                     for path, counts in PATH_COUNTS.items()}
     print(f"[done] {report['seconds']:.1f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,14 +1,15 @@
 """The port's Llama serving slice against the JAX package's, end to end.
 
-A tiny QuantLlama (vocab 64, dim 64, depth 2, 4 heads, T = 10) is built in
-JAX, calibrated there with one train-mode forward (as ``bench.py``'s Llama
-legs do), and its state carried into the port with ``load_jax_state``. Two
-models: multi-head attention with the int8 KV cache, and grouped-query
-attention (2 KV heads) with a 4-bit K/V grid, whose serving twin packs the
-decode cache two positions per byte. Both packages then run the fake-quant
-forward, ``convert_integer_inference``, the causal prefill of the integer
-twin and six greedy decode steps. The JAX side runs each of its forward and
-decode functions under one ``nnx.jit``, which halves its compile time.
+A tiny QuantLlama (vocab 64, dim 64, depth 1, 4 heads, SwiGLU width 64,
+T = 10) is built in JAX, calibrated there with one train-mode forward (as
+``bench.py``'s Llama legs do), and its state carried into the port with
+``load_jax_state``. Two models: multi-head attention with the int8 KV
+cache, and grouped-query attention (2 KV heads) with a 4-bit K/V grid,
+whose serving twin packs the decode cache two positions per byte. Both
+packages then run the fake-quant forward, ``convert_integer_inference``,
+the causal prefill of the integer twin and six greedy decode steps. The JAX
+side runs each of its forward and decode functions under one ``nnx.jit``,
+which halves its compile time.
 
 Tolerances: logits rtol = atol = 1e-4, the serving tests' bound. torch and
 XLA on the CPU may differ in the last bit of a float32 matmul, RoPE's
@@ -42,7 +43,7 @@ from brevitas_tpu_torch.nn import QuantLinear as PortQuantLinear
 
 torch.set_num_threads(1)
 
-DIMS = dict(vocab_size=64, dim=64, depth=2, num_heads=4)
+DIMS = dict(vocab_size=64, dim=64, depth=1, num_heads=4, hidden=64)
 MODELS = {"mha_int8kv": {}, "gqa_int4kv": dict(num_kv_heads=2, kv_bit_width=4)}
 B, T, STEPS = 2, 10, 6
 
@@ -115,7 +116,7 @@ def test_integer_prefill_matches_jax(run):
     pm, jm = run["pm"], run["jm"]
     n_attn = sum(isinstance(m, Int8InferenceAttention) for m in pm.modules())
     n_lin = sum(isinstance(m, Int8InferenceLinear) for m in pm.modules())
-    assert (n_attn, n_lin) == (2, 2 * 7 + 1)
+    assert (n_attn, n_lin) == (1, 7 + 1)
     for pb, jb in zip(pm.blocks, jm.blocks):
         assert pb.attn.kv_int4 == jb.attn.kv_int4 == (run["name"] == "gqa_int4kv")
     _close(*run["int"])

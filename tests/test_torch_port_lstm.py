@@ -1,0 +1,496 @@
+"""The port's QuantLSTM QAT slice against the JAX package's.
+
+One JAX model, built once for the module (under ``nnx.jit``, so that its
+initializers compile as one program): ``bench.py``'s quantlstm_int8_qat
+model cut to QuantLSTM(8, 128, num_layers=2) with the leg's quantizers
+(8-bit activations, unsigned sigmoids, statistics for one step) and an
+``nnx.Linear(128, 10)`` head on the last step, batch 8, sequence 6. The JAX
+side runs, once: a calibration forward, ``convert_runtime_stats_to_parameter``,
+and one jitted step of the forward, ``value_and_grad`` of softmax
+cross-entropy and an ``optax.adam(1e-3)`` update over every ``nnx.Param``;
+the results are kept as numpy arrays. The port repeats each stage from the
+JAX model's state at that stage (carried by ``load_jax_state``), so each
+comparison sees one stage's differences only. The cell is also held against
+the Pallas kernel in interpret mode and the jnp composition at
+``tests/test_kernels.py``'s ``_cell_args`` inputs. The CUDA kernels run only
+on the card (``chip_smoke.py``).
+
+Tolerances, each with its reason:
+- cell forward: exact, except where a stage's value before rounding lies
+  within 4 float32 ulps of a .5 tie (certified and counted). The port forms
+  sigmoid and tanh in float64 and rounds once, XLA in float32, and the
+  Pallas kernel multiplies by the reciprocal of the scale where the port
+  divides;
+- cell backward: dgates and dc within rtol = atol = 1e-5 (the
+  straight-through gradients pass ``g * s / s`` in autograd, ``g`` in the
+  kernel). Each scale's gradient, in both packages, within 1e-5 of
+  ``sum(|g q| + |g x / s|)`` of the float64 sum of its terms ``g * (q - x /
+  s)`` (``quant_lstm_cell_scale_terms``), and the two within twice that of
+  each other: an autograd adds the parts ``g * q`` and ``-g * x / s`` apart
+  in float32, and they can be hundreds of times larger than their sum (the
+  CUDA kernel sums the terms themselves and is held to 1e-5 of sum |term|
+  on the card);
+- calibration and conversion: counters exact, scales within 1e-6 relative.
+  The quantizers after a sigmoid or a tanh see inputs that differ in the
+  last bit (float64 against XLA's float32), so the percentile picks a value
+  an ulp apart, and the quantizers downstream follow;
+- outputs and (h_n, c_n) of the fused and the module path: exact. A code
+  that flipped at a .5 tie (float32 GEMM order, XLA's FMA of f * c + i * g,
+  the sigmoid's last bit) would show as a step of that quantizer's grid in
+  its batch row and fail here; none occurs at these inputs;
+- gradients: each weight's within 1e-4 of its largest element: the
+  backward through six recurrent steps carries float32 rounding (the
+  straight-through ``g * s / s`` above) from step to step, and an element
+  sums B T products that partly cancel; each learned scale's within 1e-4
+  of the largest learned-scale gradient of the model: a scale's gradient
+  sums terms ``g * (q - x / s)`` over every step, whose parts ``g * q`` are
+  as large as the largest scale gradients and cancel, so its float32 error
+  is set by that size, not by its own;
+- Adam: the port's gradients go through ``optax.adam``'s first update in
+  optax's float32 order (``_adam_first_step``), which moves a parameter by
+  ``lr * g / (|g| + eps)``. Parameters equal JAX's within 4 ulps of the
+  larger operand of ``p + u`` (the update is formed in a few roundings,
+  which XLA may fuse; the sum cancels where ``u`` is about ``-p``) plus the
+  difference of that first update between the two packages' gradients.
+  A gradient that is zero up to
+  rounding moves its parameter by up to lr either way: layer 1's input
+  quantizer sees layer 0's output on the very grid its calibration gave
+  it, so every code is exact and its terms vanish.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+from flax import nnx
+
+from brevitas_tpu.kernels.lstm_cell import quant_lstm_cell as jax_quant_lstm_cell
+from brevitas_tpu.nn import QuantLSTM as JaxQuantLSTM
+from brevitas_tpu.ops import round_ste as jax_round_ste
+from brevitas_tpu.ops import tensor_clamp as jax_tensor_clamp
+from brevitas_tpu.quant import presets as jax_presets
+from brevitas_tpu.quant.quantizers import (
+    convert_runtime_stats_to_parameter as jax_convert_runtime_stats_to_parameter,
+)
+from brevitas_tpu_torch.interop import load_jax_state
+from brevitas_tpu_torch.kernels import (
+    quant_lstm_cell,
+    quant_lstm_cell_backward,
+    quant_lstm_cell_backward_reference,
+    quant_lstm_cell_reference,
+)
+from brevitas_tpu_torch.kernels.lstm_cell import quant_lstm_cell_scale_terms
+from brevitas_tpu_torch.nn import QuantLSTM as PortQuantLSTM
+from brevitas_tpu_torch.quant import presets as port_presets
+from brevitas_tpu_torch.quant.quantizers import (
+    ParameterScaling,
+    convert_runtime_stats_to_parameter,
+)
+
+torch.set_num_threads(1)
+
+I, H, LAYERS, B, T, CLASSES = 8, 128, 2, 8, 6, 10
+LR, ADAM_EPS = 1e-3, 1e-8  # optax.adam's defaults but lr
+BOUNDS = ((-128, 127), (0, 255), (-128, 127), (-128, 127), (-128, 127), (-128, 127))
+TIE_ULPS = 4
+# the learned parameters of the model, as JAX names them (nnx.state order)
+QUANTIZERS = ["input_quant"] + [f"quants.{q}" for q in (
+    "cell_acc", "cell_state", "cell_tanh", "forget_acc", "forget_sigmoid", "gate_acc",
+    "hidden_state", "hidden_tanh", "in_sigmoid", "out_acc", "out_sigmoid")]
+SHARED = ("quants.cell_state", "quants.hidden_state")  # layer 0's, for every layer
+SCALES = [f"lstm.layers.{i}.{q}.scaling.value" for i in range(LAYERS) for q in QUANTIZERS
+          if not (i > 0 and q in SHARED)]
+WEIGHTS = ([f"lstm.layers.{i}.{w}" for i in range(LAYERS) for w in ("w_ih", "w_hh", "bias")]
+           + ["head.kernel", "head.bias"])
+PARAMS = WEIGHTS + SCALES
+
+
+def _leg_quantizers(presets):
+    act = presets.Int8ActPerTensorFloat.let(collect_stats_steps=1)
+    uact = presets.Uint8ActPerTensorFloat.let(collect_stats_steps=1)
+    return dict(io_quant=act, gate_acc_quant=act.let(), sigmoid_quant=uact,
+                tanh_quant=act.let(), cell_state_quant=act.let())
+
+
+class JaxModel(nnx.Module):
+    def __init__(self):
+        self.lstm = JaxQuantLSTM(I, H, num_layers=LAYERS, rngs=nnx.Rngs(0),
+                                 **_leg_quantizers(jax_presets))
+        # the head's kernel drawn with numpy: nnx's truncated-normal init
+        # would add its own sampler to the build's compile
+        self.head = nnx.Linear(H, CLASSES, kernel_init=nnx.initializers.zeros_init(),
+                               rngs=nnx.Rngs(1))
+        self.head.kernel[...] = jnp.asarray(
+            np.random.default_rng(1).standard_normal((H, CLASSES)).astype(np.float32)
+            / np.sqrt(np.float32(H)))
+
+    def __call__(self, x):
+        y, _ = self.lstm(x)
+        return self.head(y[:, -1])
+
+
+class PortModel(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.lstm = PortQuantLSTM(I, H, num_layers=LAYERS, device="cpu",
+                                  **_leg_quantizers(port_presets))
+        self.head = torch.nn.Linear(H, CLASSES)
+
+    def forward(self, x):
+        y, _ = self.lstm(x)
+        return self.head(y[:, -1])
+
+
+def jax_state_arrays(model) -> dict:
+    return {".".join(map(str, path)): np.asarray(v[...])
+            for path, v in nnx.to_flat_state(nnx.state(model))}
+
+
+def port_tensor(model, path: str, grad: bool = False) -> torch.Tensor:
+    """The port's tensor (or its gradient) at a JAX path, as numpy; an
+    nnx.Linear kernel is the transposed weight."""
+    owner_path, _, name = path.rpartition(".")
+    owner = model.get_submodule(owner_path)
+    t = owner.weight if name == "kernel" else getattr(owner, name)
+    t = (t.grad if grad else t).detach()
+    return (t.t() if name == "kernel" else t).numpy().copy()
+
+
+def port_model(state: dict, converted: bool) -> PortModel:
+    pm = PortModel()
+    if converted:
+        convert_runtime_stats_to_parameter(pm)
+    return load_jax_state(pm, state)
+
+
+@pytest.fixture(scope="module")
+def jax_run():
+    """The JAX model through calibration, conversion and one training step,
+    every result as numpy."""
+    rng = np.random.default_rng(0)
+    calib = rng.random((B, T, I), dtype=np.float32)
+    x = rng.random((B, T, I), dtype=np.float32)
+    y = rng.integers(0, CLASSES, B).astype(np.int32)
+    jm = nnx.jit(JaxModel)()
+    r = {"calib": calib, "x": x, "y": y, "init": jax_state_arrays(jm)}
+    nnx.jit(lambda m, v: m(v))(jm, jnp.asarray(calib))
+    r["calibrated"] = jax_state_arrays(jm)
+    r["n_converted"] = jax_convert_runtime_stats_to_parameter(jm)
+    r["converted"] = jax_state_arrays(jm)
+    opt = nnx.Optimizer(jm, optax.adam(LR), wrt=nnx.Param)
+
+    @nnx.jit
+    def step(m, o, xv, yv):
+        def loss_fn(mm):
+            out, (h_n, c_n) = mm.lstm(xv)
+            logits = mm.head(out[:, -1])
+            ce = optax.softmax_cross_entropy_with_integer_labels(logits, yv).mean()
+            return ce, (out, h_n, c_n)
+
+        (loss, aux), grads = nnx.value_and_grad(loss_fn, has_aux=True)(m)
+        o.update(m, grads)
+        return loss, aux, grads
+
+    loss, (out, h_n, c_n), grads = step(jm, opt, jnp.asarray(x), jnp.asarray(y))
+    r["loss"] = float(loss)
+    r["outputs"] = tuple(np.asarray(a) for a in (out, h_n, c_n))
+    r["grads"] = {".".join(map(str, path)): np.asarray(v[...])
+                  for path, v in nnx.to_flat_state(grads)}
+    r["after_adam"] = jax_state_arrays(jm)
+    return r
+
+
+def _adam_first_step(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``optax.adam``'s first update in optax's float32 order: the moments
+    ``(1 - b) * g`` and ``(1 - b) * g * g`` (``1 - b`` formed in float64 and
+    rounded, as a weak-typed constant is), each divided by its bias
+    correction ``1 - b`` formed in float32, then ``p + (m / (sqrt(v) + eps))
+    * -lr``. (torch.optim.Adam forms the corrections in float64, which moves
+    the update by up to 6.4e-6 of lr; the card's QAT step runs it.)"""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    b1, b2 = 0.9, 0.999
+    m = f32(1 - b1) * g / (1 - f32(b1))
+    v = f32(1 - b2) * (g * g) / (1 - f32(b2))
+    return p + (m / (torch.sqrt(v) + f32(ADAM_EPS))) * f32(-LR)
+
+
+@pytest.fixture(scope="module")
+def port_step(jax_run):
+    """The port's forward, gradients and Adam step from the JAX model's
+    converted state, through the fused path."""
+    pm = port_model(jax_run["converted"], converted=True)
+    x, y = torch.from_numpy(jax_run["x"]), torch.from_numpy(jax_run["y"]).long()
+    out, (h_n, c_n) = pm.lstm(x)
+    loss = torch.nn.functional.cross_entropy(pm.head(out[:, -1]), y)
+    loss.backward()
+    grads = {p: port_tensor(pm, p, grad=True) for p in PARAMS}
+    with torch.no_grad():
+        for param in pm.parameters():
+            param.copy_(_adam_first_step(param, param.grad))
+    after = {p: port_tensor(pm, p) for p in PARAMS}
+    return {"pm": pm, "loss": float(loss.detach()), "grads": grads, "after_adam": after,
+            "outputs": tuple(t.detach().numpy() for t in (out, h_n, c_n))}
+
+
+# -- the cell ------------------------------------------------------------------
+
+def _jnp_cell(gates, c, sa, ss, st, sc, sth, sh):
+    """The JAX package's fused step (rnn.py _fused_scan) as one jnp function."""
+    def fq(x, s, lo, hi):
+        return jax_tensor_clamp(jax_round_ste(x / s), jnp.asarray(float(lo)),
+                                jnp.asarray(float(hi))) * s
+
+    (alo, ahi), (slo, shi), (tlo, thi), (clo, chi), (thlo, thhi), (hlo, hhi) = BOUNDS
+    ga = fq(gates, sa, alo, ahi)
+    i_t = fq(jax.nn.sigmoid(ga[:, :H]), ss[:H], slo, shi)
+    f_t = fq(jax.nn.sigmoid(ga[:, H:2 * H]), ss[H:2 * H], slo, shi)
+    o_t = fq(jax.nn.sigmoid(ga[:, 3 * H:]), ss[2 * H:], slo, shi)
+    g_t = fq(jnp.tanh(ga[:, 2 * H:3 * H]), st, tlo, thi)
+    c_new = fq(f_t * c + i_t * g_t, sc, clo, chi)
+    return fq(o_t * fq(jnp.tanh(c_new), sth, thlo, thhi), sh, hlo, hhi), c_new
+
+
+def _cell_args():
+    """tests/test_kernels.py's _cell_args inputs, and upstream gradients."""
+    rng = np.random.default_rng(123456)
+    args = (rng.standard_normal((B, 4 * H)).astype(np.float32) * 2,
+            rng.standard_normal((B, H)).astype(np.float32),
+            rng.uniform(0.01, 0.05, (4 * H,)).astype(np.float32),
+            rng.uniform(0.002, 0.01, (3 * H,)).astype(np.float32),
+            np.float32(0.008), np.float32(0.02), np.float32(0.008), np.float32(0.008))
+    dh = rng.standard_normal((B, H)).astype(np.float32)
+    dcn = rng.standard_normal((B, H)).astype(np.float32)
+    return args, dh, dcn
+
+
+@pytest.fixture(scope="module")
+def cell():
+    """The cell in both packages: forward and gradients of
+    sum(h * dh) + sum(c_new * dcn) (the VJP with cotangents dh, dcn) through
+    the Pallas kernel (interpret mode) and the jnp composition, under one
+    jit."""
+    args, dh, dcn = _cell_args()
+
+    @jax.jit
+    def both(*a):
+        def pallas(*v):
+            return jax_quant_lstm_cell(*v, H, BOUNDS, True)
+
+        outs, grads = [], []
+        for fn in (pallas, _jnp_cell):
+            out, vjp = jax.vjp(fn, *a)
+            outs.append(out)
+            grads.append(vjp((jnp.asarray(dh), jnp.asarray(dcn))))
+        return outs, grads
+
+    (pallas_out, jnp_out), (pallas_grads, jnp_grads) = both(*(jnp.asarray(a) for a in args))
+    t = [torch.from_numpy(np.asarray(a)) for a in args]
+    dh_t, dcn_t = torch.from_numpy(dh), torch.from_numpy(dcn)
+    with torch.no_grad():
+        port_out = quant_lstm_cell_reference(*t, BOUNDS)
+    port_grads = quant_lstm_cell_backward_reference(*t, dh_t, dcn_t, BOUNDS)
+    terms, parts, pre, _ = quant_lstm_cell_scale_terms(*t, dh_t, dcn_t, BOUNDS)
+    as_np = lambda seq: [np.asarray(v) for v in seq]  # noqa: E731
+    return {"args": t, "dh": dh_t, "dcn": dcn_t,
+            "out": {"port": as_np(port_out), "pallas": as_np(pallas_out),
+                    "jnp": as_np(jnp_out)},
+            "grads": {"port": as_np(port_grads), "pallas": as_np(pallas_grads),
+                      "jnp": as_np(jnp_grads)},
+            "terms": [tm.numpy() for tm in terms], "parts": [p.numpy() for p in parts],
+            "pre": [x.numpy() for x in pre]}
+
+
+def _tie_ulps(pre) -> np.ndarray:
+    """Per (b, j): the fewest float32 ulps between a stage's value before
+    rounding (the port's forward) and a .5 tie."""
+    dist = []
+    for v in pre:
+        with np.errstate(over="ignore"):
+            ulps = np.abs(np.abs(v - np.floor(v)) - 0.5) / np.spacing(np.abs(v))
+        dist.append(ulps.reshape(B, -1, H).min(axis=1))
+    return np.min(dist, axis=0)
+
+
+@pytest.mark.parametrize("ref", ["pallas", "jnp"])
+def test_cell_forward_matches_jax(cell, ref):
+    """h and c_new equal JAX's (the Pallas kernel in interpret mode, or the
+    jnp composition), except at certified ties."""
+    ties = _tie_ulps(cell["pre"]) <= TIE_ULPS
+    for got, want in zip(cell["out"]["port"], cell["out"][ref]):
+        differ = got != want
+        assert not np.any(differ & ~ties), f"{ref}: {int((differ & ~ties).sum())} differ"
+    print(f"cell forward against {ref}: {int(ties.sum())} certified ties of {ties.size}")
+
+
+@pytest.mark.parametrize("ref", ["pallas", "jnp"])
+def test_cell_backward_matches_jax(cell, ref):
+    """Against jax.grad of the Pallas kernel's VJP, or of the jnp composition."""
+    port, want = cell["grads"]["port"], cell["grads"][ref]
+    for got, exp in zip(port[:2], want[:2]):  # dgates, dc
+        np.testing.assert_allclose(got, exp, rtol=1e-5, atol=1e-5, err_msg=ref)
+    for got, exp, term, part in zip(port[2:], want[2:], cell["terms"], cell["parts"]):
+        dims = (0,) if term.shape[1] == np.size(exp) else (0, 1)
+        exact, mass = term.sum(axis=dims), part.sum(axis=dims)
+        got, exp = (np.asarray(v, np.float64).reshape(mass.shape) for v in (got, exp))
+        assert np.all(np.abs(got - exact) <= 1e-5 * mass)
+        assert np.all(np.abs(exp - exact) <= 1e-5 * mass), ref
+        assert np.all(np.abs(got - exp) <= 2e-5 * mass), ref
+
+
+def test_cell_wrappers_take_the_plain_version_on_the_cpu(cell):
+    """A CPU tensor takes the plain version, and no kernel is launched."""
+    t, dh, dcn = cell["args"], cell["dh"], cell["dcn"]
+    with torch.no_grad():
+        got = quant_lstm_cell(*t, BOUNDS)
+    for a, b in zip(got, cell["out"]["port"]):
+        np.testing.assert_array_equal(a.numpy(), b)
+    for a, b in zip(quant_lstm_cell_backward(*t, dh, dcn, BOUNDS), cell["grads"]["port"]):
+        np.testing.assert_array_equal(a.numpy(), b)
+    assert quant_lstm_cell.launches == 0 and quant_lstm_cell_backward.launches == 0
+
+
+def test_cell_wrappers_refuse_devices_without_a_kernel():
+    """A tensor on a device without a kernel is refused, never sent to the
+    plain version."""
+    gates = torch.zeros((2, 8), device="meta")
+    c = torch.zeros((2, 2), device="meta")
+    scales = (torch.ones(8, device="meta"), torch.ones(6, device="meta"),
+              *(torch.ones((), device="meta") for _ in range(4)))
+    with pytest.raises(ValueError):
+        quant_lstm_cell(gates, c, *scales, BOUNDS)
+    with pytest.raises(ValueError):
+        quant_lstm_cell_backward(gates, c, *scales, c, c, BOUNDS)
+
+
+# -- the model -----------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def port_calibrated(jax_run):
+    """The port's own calibration forward from the JAX model's initial state
+    (the module cell: no grid is static yet), then
+    convert_runtime_stats_to_parameter."""
+    pm = port_model(jax_run["init"], converted=False)
+    r = {"fused_before": [layer._fused_cell_params() is not None for layer in pm.lstm.layers]}
+    with torch.no_grad():
+        pm(torch.from_numpy(jax_run["calib"]))
+    r["calibrated"] = {path: port_tensor(pm, path) for path in jax_run["calibrated"]
+                       if ".scaling." in path}
+    r["n_converted"] = convert_runtime_stats_to_parameter(pm)
+    r["pm"] = pm
+    return r
+
+
+def test_calibration_matches_jax(jax_run, port_calibrated):
+    """Each quantizer's buffer, value and counter after one calibration
+    forward."""
+    assert port_calibrated["fused_before"] == [False] * LAYERS
+    assert set(port_calibrated["calibrated"]) == {
+        p for p in jax_run["calibrated"] if ".scaling." in p}
+    for path, got in port_calibrated["calibrated"].items():
+        want = jax_run["calibrated"][path]
+        if path.endswith(".counter"):
+            np.testing.assert_array_equal(got, want, err_msg=path)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=0, err_msg=path)
+
+
+def test_conversion_matches_jax(jax_run, port_calibrated):
+    """convert_runtime_stats_to_parameter's learned scales, after which every
+    layer takes the cell kernel's route."""
+    pm = port_calibrated["pm"]
+    assert port_calibrated["n_converted"] == jax_run["n_converted"] == len(SCALES)
+    assert set(p for p, _ in pm.named_parameters()) == {
+        p.replace("head.kernel", "head.weight") for p in PARAMS}
+    for path in SCALES:
+        owner = pm.get_submodule(path.rsplit(".", 2)[0])
+        assert isinstance(owner.scaling, ParameterScaling)
+        assert owner.cfg.scaling_impl == "parameter"
+        np.testing.assert_allclose(port_tensor(pm, path), jax_run["converted"][path],
+                                   rtol=1e-6, atol=0, err_msg=path)
+    for layer in pm.lstm.layers:
+        assert layer._kernel_cell_args(layer._fused_cell_params(), torch.float32) is not None
+
+
+@pytest.mark.parametrize("path", ["fused", "module_cell"])
+def test_forward_matches_jax(jax_run, port_step, path):
+    """Outputs, h_n and c_n of the fused path or of the module cell, from the
+    JAX model's converted state, against JAX's fused path; the fused path's
+    loss."""
+    if path == "fused":
+        got = port_step["outputs"]
+        assert port_step["loss"] == pytest.approx(jax_run["loss"], rel=1e-6)
+    else:
+        pm = port_model(jax_run["converted"], converted=True)
+        for layer in pm.lstm.layers:
+            layer.fused_cell = False
+        with torch.no_grad():
+            out, (h_n, c_n) = pm.lstm(torch.from_numpy(jax_run["x"]))
+        got = (out.numpy(), h_n.numpy(), c_n.numpy())
+    for g, w, name in zip(got, jax_run["outputs"], ("outputs", "h_n", "c_n")):
+        assert g.shape == w.shape and np.isfinite(g).all()
+        np.testing.assert_array_equal(g, w, err_msg=f"{path} {name}")
+
+
+@pytest.mark.parametrize("group", ["weights", "learned_scales"])
+def test_gradients_match_jax(jax_run, port_step, group):
+    """Every parameter's gradient, learned scales included."""
+    scale_max = max(np.abs(jax_run["grads"][p]).max() for p in SCALES)
+    for path in WEIGHTS if group == "weights" else SCALES:
+        got, want = port_step["grads"][path], jax_run["grads"][path]
+        assert got.shape == want.shape, path
+        size = scale_max if path in SCALES else np.abs(want).max()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * size, err_msg=path)
+
+
+def test_adam_step_matches_jax(jax_run, port_step):
+    first_update = lambda g: LR * g / (np.abs(g) + ADAM_EPS)  # noqa: E731
+    for path in PARAMS:
+        got, want = port_step["after_adam"][path], jax_run["after_adam"][path]
+        g_port, g_jax = port_step["grads"][path], jax_run["grads"][path]
+        # ulps of the sum's larger operand, the parameter or the update
+        # (about lr): p + u cancels where u is about -p
+        operand = np.maximum(np.abs(jax_run["converted"][path]), np.float32(LR))
+        tol = 4 * np.spacing(operand) + np.abs(first_update(g_port) - first_update(g_jax))
+        assert np.all(np.abs(got - want) <= tol), path
+
+
+def test_load_jax_state_fills_shared_quantizers_and_the_head(jax_run):
+    state = jax_run["converted"]
+    # a quantizer that JAX shares appears once, at layer 0's path
+    assert not any(k.startswith(f"lstm.layers.1.{q}") for k in state for q in SHARED)
+    pm = port_model(state, converted=True)
+    for q in SHARED:
+        assert pm.get_submodule(f"lstm.layers.1.{q}") is pm.get_submodule(f"lstm.layers.0.{q}")
+    for path, want in state.items():
+        np.testing.assert_array_equal(port_tensor(pm, path), want, err_msg=path)
+    assert tuple(pm.head.weight.shape) == (CLASSES, H)
+
+
+def test_load_jax_state_refuses_unknown_paths_and_shapes():
+    pm = port_model({}, converted=True)
+    with pytest.raises((KeyError, AttributeError)):
+        load_jax_state(pm, {"lstm.layers.2.w_ih": np.zeros((H, 4 * H), np.float32)})
+    with pytest.raises(ValueError):
+        load_jax_state(pm, {"head.kernel": np.zeros((CLASSES, H), np.float32)})
+
+
+@pytest.mark.parametrize("option", [
+    "coupled_input_forget_gates", "shared_input_hidden_weights",
+    "shared_intra_layer_weight_quant", "shared_intra_layer_gate_acc_quant",
+    "cat_output_cell_states"])
+def test_quant_lstm_refuses_options_not_ported(option):
+    kw = ({option: False} if option == "cat_output_cell_states"
+          else {option: True, "bidirectional": True})
+    with pytest.raises(NotImplementedError):
+        PortQuantLSTM(I, H, device="cpu", **kw)
+
+
+def test_quant_lstm_defaults_to_the_card():
+    """The default device is the card, which raises where there is none."""
+    if torch.cuda.is_available():
+        assert next(PortQuantLSTM(I, H).parameters()).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            PortQuantLSTM(I, H)

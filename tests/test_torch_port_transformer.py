@@ -1,7 +1,7 @@
 """The port's QuantTransformer and ``serve.py --decode`` against the JAX
 package's.
 
-A tiny QuantTransformer (vocab 64, dim 64, depth 2, 4 heads, max_len 24) is
+A tiny QuantTransformer (vocab 64, dim 64, depth 1, 4 heads, max_len 24) is
 built in JAX with serve.py's decode-mode quantizers (two calibration
 steps), its state carried into the port with ``load_jax_state``, and both
 packages calibrate it with two passes under ``calibration_mode``, convert it
@@ -50,7 +50,7 @@ from brevitas_tpu_torch.quant.quantizers import ActQuantizer as PortActQuantizer
 
 torch.set_num_threads(1)
 
-DIMS = dict(vocab_size=64, dim=64, depth=2, num_heads=4, max_len=24)
+DIMS = dict(vocab_size=64, dim=64, depth=1, num_heads=4, max_len=24)
 B, T, STEPS = 2, 10, 6
 
 
@@ -195,8 +195,8 @@ def test_calibration_mode_matches_jax(run):
         else:
             np.testing.assert_allclose(got, want, rtol=1e-6, atol=0, err_msg=path)
             n_scales += 1
-    # buffer and value of 13 activation quantizers a block and the head's
-    assert n_scales == 2 * (2 * 13 + 1)
+    # buffer and value of the block's 13 activation quantizers and the head's
+    assert n_scales == 2 * (13 + 1)
     # quantization is back on, and eval mode as before the context
     assert run["port_modes"] == [(False, False)] * len(run["port_modes"])
 
@@ -211,7 +211,7 @@ def test_integer_forward_matches_jax(run):
     pm, jm = run["pm"], run["jm"]
     n_attn = sum(isinstance(m, Int8InferenceAttention) for m in pm.modules())
     n_lin = sum(isinstance(m, Int8InferenceLinear) for m in pm.modules())
-    assert (n_attn, n_lin) == (2, 2 * 6 + 1)
+    assert (n_attn, n_lin) == (1, 6 + 1)
     for pb, jb in zip(pm.blocks, jm.blocks):
         assert pb.attn.kv_int4 == jb.attn.kv_int4 == bool(run["kv_bits"])
     _close(*run["int"])

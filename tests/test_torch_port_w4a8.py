@@ -22,6 +22,7 @@ Tolerances, each with its reason:
 """
 
 import functools
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -324,6 +325,28 @@ def _record_inputs(cls, store):
     return name, orig, call
 
 
+def _jax_integer_forward(jm, ids):
+    """The JAX twin's jitted forward: its logits and, in call order, each
+    serving twin's input with that twin's input grid (the scale an output
+    of the jit, the static zero point and bounds read while tracing)."""
+    store, grids = [], []
+    name, orig, call = _record_inputs(jax_convert_int.Int8InferenceLinear, store)
+
+    def forward(m, v):
+        setattr(jax_convert_int.Int8InferenceLinear, name, call)
+        try:
+            logits = m(v)
+        finally:
+            setattr(jax_convert_int.Int8InferenceLinear, name, orig)
+        grids.extend((t.x_zp, t.x_lo, t.x_hi) for t, _ in store)
+        return logits, [(t.x_scale, x) for t, x in store]
+
+    logits, seen = nnx.jit(forward)(jm, jnp.asarray(ids))
+    return np.asarray(logits), [
+        (types.SimpleNamespace(x_scale=s, x_zp=zp, x_lo=lo, x_hi=hi), np.asarray(x))
+        for (s, x), (zp, lo, hi) in zip(seen, grids)]
+
+
 def _codes(twin, x):
     """(codes, value before rounding) at a frozen-input twin's input."""
     pre = np.asarray(x) / float(np.asarray(twin.x_scale)) + twin.x_zp
@@ -347,21 +370,17 @@ def w4a8_llama():
         r["fake"] = (pm(ids_t).numpy(), np.asarray(_jax_forward(jm, jnp.asarray(ids))))
         JG.convert_integer_inference(jm)
         PG.convert_integer_inference(pm)
-        r["int"] = (pm(ids_t).numpy(), np.asarray(_jax_forward(jm, jnp.asarray(ids))))
-        # the twins' inputs, recorded in call order (JAX eagerly, so they are values)
-        stores = ([], [])
-        for cls, store in ((Int8InferenceLinear, stores[0]),
-                           (jax_convert_int.Int8InferenceLinear, stores[1])):
-            name, orig, call = _record_inputs(cls, store)
-            setattr(cls, name, call)
-            try:
-                if store is stores[0]:
-                    pm(ids_t)
-                else:
-                    jm(jnp.asarray(ids))
-            finally:
-                setattr(cls, name, orig)
-        r["inputs"] = stores
+        # the twins' inputs, recorded in call order
+        port_inputs = []
+        name, orig, call = _record_inputs(Int8InferenceLinear, port_inputs)
+        setattr(Int8InferenceLinear, name, call)
+        try:
+            port_logits = pm(ids_t).numpy()
+        finally:
+            setattr(Int8InferenceLinear, name, orig)
+        jax_logits, jax_inputs = _jax_integer_forward(jm, ids)
+        r["int"] = (port_logits, jax_logits)
+        r["inputs"] = (port_inputs, jax_inputs)
         jc, pc = jm.init_decode_caches(B, T), pm.init_decode_caches(B, T)
         r["steps"] = []
         for t in range(STEPS):
