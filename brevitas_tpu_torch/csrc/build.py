@@ -30,6 +30,7 @@ SOURCES = {
     "int8_attention": HERE / "int8_attention.cu",
     "int4kv_decode_attention": HERE / "int4kv_decode_attention.cu",
     "quant_lstm_cell": HERE / "quant_lstm_cell.cu",
+    "fake_quant": HERE / "fake_quant.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]

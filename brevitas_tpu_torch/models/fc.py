@@ -65,6 +65,13 @@ class FC(nn.Module):
         self._dropout_gen = None
         self.to(device)
 
+    def clip_weights(self, min_val: float = -1.0, max_val: float = 1.0) -> None:
+        """Post-step weight clipping, in place (reference trainer.py:245)."""
+        with torch.no_grad():
+            for lyr in [*self.hidden, self.head]:
+                if isinstance(lyr, QuantLinear):
+                    lyr.weight.clamp_(min_val, max_val)
+
     def _dropout(self, x):
         if not (self.training and self.dropout_rate > 0):
             return x

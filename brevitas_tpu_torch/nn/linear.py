@@ -1,7 +1,9 @@
 """QuantLinear (port of ``brevitas_tpu/nn/linear.py``).
 
 The weight is stored the torch way, (out_features, in_features); the JAX
-package stores (in, out). ``interop.jax_state`` transposes across.
+package stores (in, out). ``interop.jax_state`` transposes across. With
+``compute_dtype`` set, the product takes bf16-rounded operands and returns
+float32 (``compute_dtype_matmul``).
 """
 
 from typing import Optional
@@ -11,6 +13,48 @@ import torch
 from brevitas_tpu_torch.nn.quant_layer import QuantWBIOL
 from brevitas_tpu_torch.quant.config import QuantConfig
 from brevitas_tpu_torch.quant.presets import Int8WeightPerTensorFloat
+
+
+class _ComputeDtypeMatmul(torch.autograd.Function):
+    """``a @ b`` of the operands rounded to ``dtype``, with a float32 result,
+    as ``jnp.dot(a.astype(dtype), b.astype(dtype),
+    preferred_element_type=float32)`` computes it. The product of two bf16
+    values is exact in float32, so the forward is a float32 product of the
+    rounded operands (exact for integer codes while the sums stay below
+    2^24). The backward is JAX's transpose of that dot: each operand's
+    gradient is the float32 product of the unrounded upstream gradient with
+    the other rounded operand, rounded to ``dtype`` and back to the
+    operand's own dtype. Autograd of a bf16 ``torch.matmul`` would round the
+    upstream gradient first and return a bf16 product instead."""
+
+    @staticmethod
+    def forward(ctx, a, b, dtype):
+        ar = a.to(dtype).to(torch.float32)
+        br = b.to(dtype).to(torch.float32)
+        ctx.save_for_backward(ar, br)
+        ctx.dtype = dtype
+        ctx.dtypes = (a.dtype, b.dtype)
+        return torch.matmul(ar, br)
+
+    @staticmethod
+    def backward(ctx, g):
+        ar, br = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.matmul(g, br.t()).to(ctx.dtype).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            k, n = br.shape
+            db = torch.matmul(ar.reshape(-1, k).t(), g.reshape(-1, n))
+            db = db.to(ctx.dtype).to(ctx.dtypes[1])
+        return da, db, None
+
+
+def compute_dtype_matmul(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``a @ b`` for ``a`` (..., K) and a matrix ``b`` (K, N), with ``dtype``
+    (bf16) operands and a float32 result; see ``_ComputeDtypeMatmul``."""
+    if b.ndim != 2:
+        raise ValueError(f"compute_dtype_matmul takes a matrix b, got {b.ndim}-D")
+    return _ComputeDtypeMatmul.apply(a, b, dtype)
 
 
 class QuantLinear(QuantWBIOL):
@@ -49,7 +93,10 @@ class QuantLinear(QuantWBIOL):
 
     def forward(self, x):
         def inner(xv, wv, bv):
-            y = torch.matmul(xv, wv.t())
+            if self.compute_dtype is not None:
+                y = compute_dtype_matmul(xv, wv.t(), self.compute_dtype)
+            else:
+                y = torch.matmul(xv, wv.t())
             if bv is not None:
                 y = y + bv
             return y.to(xv.dtype)

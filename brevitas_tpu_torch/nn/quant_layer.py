@@ -5,8 +5,14 @@ of ``brevitas_tpu/nn/quant_layer.py``).
     propagation -> bias_quant(b | acc_scale, acc_bit_width) -> inner forward
     -> output_quant -> pack.
 
-Left out: the ``compute_dtype`` code-domain branch (off by default), the
-cached inference weight, accumulator-aware (A2Q) weights and the PTQ hooks.
+With ``compute_dtype`` set (``utils.set_compute_dtype``) and INT input
+and weight grids of at most 9 bits with integral zero points, the layer
+feeds the integer codes ``value / scale`` (exact small integers, lossless in
+bf16) to its product and rescales the float32 result by the output scale:
+the code-domain branch.
+
+Left out: the cached inference weight, accumulator-aware (A2Q) weights and
+the PTQ hooks.
 """
 
 from typing import Optional, Union
@@ -29,6 +35,18 @@ TensorOrQuant = Union[torch.Tensor, QuantTensor]
 
 def _cfg(q: Optional[QuantConfig], default: QuantConfig) -> QuantConfig:
     return default if q is None else q
+
+
+def _static_leq(v, lim: float) -> bool:
+    """True when ``v`` is a known number <= ``lim`` (the port's bit widths
+    are constant Python floats)."""
+    return v is not None and not torch.is_tensor(v) and float(v) <= lim
+
+
+def _static_integer_zp(zp) -> bool:
+    """True when the zero point is a known integer (the port's are Python
+    numbers): then ``value / scale`` is an exact small integer."""
+    return zp is None or (not torch.is_tensor(zp) and float(zp).is_integer())
 
 
 class QuantLayerMixin:
@@ -73,6 +91,10 @@ class QuantWBIOL(QuantLayerMixin, nn.Module):
                                   dtype=torch.float32)
         return float(torch.ceil(torch.log2(max_output)))
 
+    # the product's operand dtype (torch.bfloat16) or None for float32:
+    # see utils.set_compute_dtype
+    compute_dtype: Optional[torch.dtype] = None
+
     def quant_weight(self) -> QuantTensor:
         return self.weight_quant(self.weight)
 
@@ -98,16 +120,36 @@ class QuantWBIOL(QuantLayerMixin, nn.Module):
         if quant_input.signed is not None:
             output_signed = quant_input.signed or quant_weight.signed
 
-        x_in, w_in = quant_input.value, quant_weight.value
+        # code domain: exact integer codes through the bf16 product, its
+        # float32 result rescaled by the output scale (the same values as
+        # the float32 product of the fake-quant values, up to its rounding)
+        code_domain = (
+            self.compute_dtype is not None
+            and output_scale is not None
+            and self.weight_quant.quant_type == QuantType.INT
+            and _static_leq(quant_input.bit_width, 9.0)
+            and _static_leq(quant_weight.bit_width, 9.0)
+            and _static_integer_zp(quant_input.zero_point)
+            and _static_integer_zp(quant_weight.zero_point))
+        if code_domain:
+            x_in = quant_input.value / quant_input.scale
+            w_in = quant_weight.value / quant_weight.scale
+        else:
+            x_in, w_in = quant_input.value, quant_weight.value
         bias = getattr(self, "bias", None)
         if bias is not None:
             quant_bias = self.bias_quant(bias, input_scale=output_scale,
                                          input_bit_width=output_bit_width)
-            out = inner_forward(x_in, w_in, quant_bias.value)
+            if code_domain:
+                out = inner_forward(x_in, w_in, None) * output_scale + quant_bias.value
+            else:
+                out = inner_forward(x_in, w_in, quant_bias.value)
             if quant_bias.bit_width is not None and output_bit_width is not None:
                 output_bit_width = max(quant_bias.bit_width, output_bit_width) + 1
         else:
             out = inner_forward(x_in, w_in, None)
+            if code_domain:
+                out = out * output_scale
 
         if (self.return_quant_tensor
                 and self.output_quant.quant_type == QuantType.NONE

@@ -36,7 +36,12 @@ package's ``jax.checkpoint`` has no counterpart).
 Left out, still to port: CIFG (``coupled_input_forget_gates``),
 ``shared_input_hidden_weights``, ``shared_intra_layer_weight_quant``,
 ``shared_intra_layer_gate_acc_quant``, ``cat_output_cell_states=False``,
-``compute_dtype``, QuantRNN and the ONNX export of the fake-quant LSTM.
+QuantRNN and the ONNX export of the fake-quant LSTM.
+
+``compute_dtype`` (``utils.set_compute_dtype``) stores the fused step's
+input projection and recurrent weights in bf16, as the JAX package does;
+the per-step product takes a bf16-rounded ``h`` and returns float32
+(``nn.linear.compute_dtype_matmul``), and the cell stays float32.
 """
 
 from typing import Optional, Tuple
@@ -46,6 +51,7 @@ from torch import nn
 
 from brevitas_tpu_torch.core import quant as Qf
 from brevitas_tpu_torch.kernels.lstm_cell import cell_step, quant_lstm_cell
+from brevitas_tpu_torch.nn.linear import compute_dtype_matmul
 from brevitas_tpu_torch.ops import round_ste, sigmoid_f64, tanh_f64, tensor_clamp, tensor_clamp_ste
 from brevitas_tpu_torch.ops.numeric import max_int, min_int
 from brevitas_tpu_torch.quant.config import QuantConfig
@@ -139,6 +145,10 @@ class _QuantLSTMLayer(nn.Module):
                                           shared_cell_state=shared_cell_state,
                                           shared_io=shared_io)
 
+    # the fused step's operand dtype (torch.bfloat16) or None for float32:
+    # see utils.set_compute_dtype
+    compute_dtype = None
+
     def _quant_packed(self, w: torch.Tensor, quants) -> torch.Tensor:
         """Quantize a packed (X, 4H) gate matrix gate block by gate block."""
         h = self.hidden_size
@@ -213,7 +223,7 @@ class _QuantLSTMLayer(nn.Module):
     def _fused_scan(self, x_proj, h, c, qw_hh, stages):
         """The time loop with data-independent grids: no quantizer state,
         batched gate fake-quants."""
-        kernel_args = self._kernel_cell_args(stages, x_proj.dtype)
+        kernel_args = self._kernel_cell_args(stages, c.dtype)
         if kernel_args is not None:
             sa, ss, (st, sc, sth, sh), bounds = kernel_args
 
@@ -222,9 +232,15 @@ class _QuantLSTMLayer(nn.Module):
         else:
             def step(gates, c):
                 return cell_step(gates, c, lambda x, k: self._fused_quant(x, stages[STAGES[k]]))
+        if qw_hh.dtype == c.dtype:
+            def gemm(h):
+                return h @ qw_hh
+        else:  # compute_dtype: bf16 operands, a float32 product
+            def gemm(h):
+                return compute_dtype_matmul(h, qw_hh, qw_hh.dtype)
         ys = []
         for xp_t in x_proj.unbind(1):
-            h, c = step(xp_t + h @ qw_hh, c)
+            h, c = step(xp_t.to(c.dtype) + gemm(h), c)
             ys.append(h)
         return torch.stack(ys, dim=1), (h, c)
 
@@ -261,6 +277,12 @@ class _QuantLSTMLayer(nn.Module):
             x_proj = torch.flip(x_proj, dims=(1,))
         stages = self._fused_cell_params() if self.fused_cell else None
         if stages is not None:
+            if self.compute_dtype is not None:
+                # store the streamed input projection and the recurrent
+                # weights in bf16; the per-step product returns float32 and
+                # the cell's math stays float32
+                x_proj = x_proj.to(self.compute_dtype)
+                qw_hh = qw_hh.to(self.compute_dtype)
             ys, state = self._fused_scan(x_proj, h0, c0, qw_hh, stages)
         else:
             ys, state = self._module_scan(x_proj, h0, c0, qw_hh)

@@ -10,7 +10,9 @@ delay; the INT/NONE weight quantizer, per-tensor or per output channel, and
 activation quantizer, per-tensor, signed or unsigned, with its static grid
 (``ActQuantizer.static_int_params``); the NONE bias quantizer; and the
 ``disable_quant`` switch that calibration mode sets. Configs that need
-anything else raise ``NotImplementedError``.
+anything else raise ``NotImplementedError``. On the card a per-tensor
+quantizer's fake-quant is the ``fake_quant`` CUDA kernel
+(``int_fake_quant``).
 
 The JAX package selects the two-phase scaler's branch with ``lax.cond`` on
 a carried counter so it stays inside one jitted step; PyTorch runs eagerly,
@@ -27,8 +29,12 @@ from torch import nn
 from brevitas_tpu_torch.core import quant as Qf
 from brevitas_tpu_torch.core import restrict as R
 from brevitas_tpu_torch.core import stats as S
+from brevitas_tpu_torch.kernels.fake_quant import fake_quant
 from brevitas_tpu_torch.ops import (
     abs_binary_sign_grad,
+    max_int,
+    min_int,
+    round_ste,
     scalar_clamp_min_ste,
     tensor_clamp,
     tensor_clamp_ste,
@@ -261,6 +267,32 @@ class QuantDelay(nn.Module):
         return x if c < self.steps else y
 
 
+def _one_value(v, x: torch.Tensor) -> bool:
+    """A number, or a one-element float32 tensor on ``x``'s device that
+    broadcasts to no more dimensions than ``x`` has."""
+    if not torch.is_tensor(v):
+        return True
+    return (v.numel() == 1 and v.dtype == torch.float32 and v.device == x.device
+            and v.ndim <= x.ndim)
+
+
+def int_fake_quant(x: torch.Tensor, scale, zero_point, bit_width: float, cfg: QuantConfig,
+                   float_to_int) -> torch.Tensor:
+    """INT fake-quant of ``x`` under ``cfg``. A per-tensor quantizer that
+    rounds half to even, on a float32 CUDA tensor, launches the fused
+    ``kernels.fake_quant`` (bit for bit the chain); per-channel scales, other
+    roundings and CPU tensors run ``core/quant.py``'s chain, as the JAX
+    package computes every quantizer."""
+    lo = min_int(cfg.signed, cfg.narrow_range, bit_width)
+    hi = max_int(cfg.signed, cfg.narrow_range, bit_width)
+    if (x.is_cuda and x.dtype == torch.float32 and float_to_int is round_ste
+            and _one_value(scale, x) and _one_value(zero_point, x)):
+        return fake_quant(x, scale, zero_point, lo, hi, ste_clamp=cfg.clamp_ste)
+    return Qf.int_quant(x, scale, zero_point, bit_width, signed=cfg.signed,
+                        narrow_range=cfg.narrow_range, float_to_int=float_to_int,
+                        clamp_fn=tensor_clamp_ste if cfg.clamp_ste else tensor_clamp)
+
+
 def _check_int(quant_type: QuantType) -> None:
     if quant_type != QuantType.INT:
         raise NotImplementedError(f"{quant_type.value} quantization is not ported yet")
@@ -300,10 +332,7 @@ class ParameterQuantizer(nn.Module):
         scale = Qf.rescaling_scale(self.scaling(view), bit_width, signed=cfg.signed,
                                    narrow_range=cfg.narrow_range)
         zp = self.zero_point(view, scale, bit_width)
-        y = Qf.int_quant(w, scale, zp, bit_width, signed=cfg.signed,
-                         narrow_range=cfg.narrow_range,
-                         float_to_int=self._float_to_int,
-                         clamp_fn=tensor_clamp_ste if cfg.clamp_ste else tensor_clamp)
+        y = int_fake_quant(w, scale, zp, bit_width, cfg, self._float_to_int)
         return QuantTensor(self.delay(w, y), scale, zp, bit_width, signed=cfg.signed)
 
 
@@ -360,10 +389,7 @@ class ActQuantizer(nn.Module):
         scale = Qf.rescaling_scale(self.scaling(view), bit_width, signed=cfg.signed,
                                    narrow_range=cfg.narrow_range)
         zp = self.zero_point(view, scale, bit_width)
-        y = Qf.int_quant(x, scale, zp, bit_width, signed=cfg.signed,
-                         narrow_range=cfg.narrow_range,
-                         float_to_int=self._float_to_int,
-                         clamp_fn=tensor_clamp_ste if cfg.clamp_ste else tensor_clamp)
+        y = int_fake_quant(x, scale, zp, bit_width, cfg, self._float_to_int)
         return QuantTensor(self.delay(x, y), scale, zp, bit_width,
                            signed=cfg.signed, training=self.training)
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA card.
 
 Run from the repository root on a machine with a card and the CUDA toolkit:
 
@@ -64,6 +64,15 @@ Phases; any failure exits non-zero and prints no result:
              autograd; each scale gradient within 1e-5 * sum |term| of the
              float64 sum of the plain version's per-element terms, and the
              same bits on a second run. Times as above.
+11b. fake_quant_kernels - fake_quant's forward and backward kernels at the
+             shapes of an lfc_qat step ((1024, 784), (1024, 1024), (10, 1024))
+             and an unaligned (3, 5, 7), zero points 0 and 3, both clamp
+             modes, every clamp reached: forward and dx bit for bit against
+             the plain versions on the card; dscale and dzp within 1e-5 *
+             sum |term| of the float64 sum of the plain terms; the same bits
+             on a second run. Times as above; the library point is torch's
+             own fake-quant ops, which multiply by 1/s (the Pallas kernel's
+             function, not the port's).
 12. lstm_qat - bench.py's quantlstm_int8_qat leg at full width: QuantLSTM(128,
              512, num_layers=2) with the leg's quantizers and a Linear(512, 10)
              head on y[:, -1]; one calibration forward (the module cell: no
@@ -74,7 +83,24 @@ Phases; any failure exits non-zero and prints no result:
              first step runs the same steps through the module cell
              (fused_cell = False): the first step's loss the same bits and
              its weight gradients within 1e-4, each step's loss within 1e-3,
-             each weight's total update within 0.3 of its norm.
+             each weight's total update within 0.3 of its norm. Run twice:
+             float32 operands, and bf16 (set_compute_dtype, bench's
+             default), whose copy runs the same fused step on the cell's
+             plain version. Each step also launches fake_quant 18 times each
+             way (each layer's input and 8 gate-weight quantizers).
+12b. lfc_qat - bench.py's lfc_int4_qat leg at full width, nothing cut:
+             lfc(4, 4, 4, dropout=0.0), batch 1024, the square hinge loss,
+             Adam lr 1e-3 and clip_weights(-1, 1) through the trainer's
+             train_step, data drawn as _scanned_train draws it; a warm-up and
+             30 timed steps (one scanned epoch), in bf16 operands (bench's
+             default) and in float32. 8 fake_quant and 7 fake_quant_backward
+             launches a step. A copy on the card runs the plain chain in every
+             quantizer: the warm-up's loss and every gradient the same bits,
+             each later step's loss difference reported; a CPU copy's first
+             loss within 1e-5 (BatchNorm's reduction order). ms per step,
+             images/s, device busy time and idle share.
+12c. bnn_pynq - examples.bnn_pynq.main(["--network", "LFC_4W4A", "--dataset",
+             "synthetic", "--epochs", "1"]) on the card, its launches counted.
 13. report - one {"kernels": [...]} line; the last line is
              {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -576,8 +602,10 @@ def phase_lfc(dev):
         counts = _launch_counts()
         _record_path(f"lfc{bits}", counts)
         print(f"[lfc] {bits}-bit batch {LFC_BATCH}: launches {counts}")
-        if counts[kernel] != 4 or sum(counts.values()) != 4:
-            raise AssertionError(f"lfc {bits}-bit: expected 4 {kernel} launches")
+        # 4 GEMM launches, and 4 fake_quant: the input and 3 activation quantizers
+        want = {k: 4 if k in (kernel, "fake_quant") else 0 for k in counts}
+        if counts != want:
+            raise AssertionError(f"lfc {bits}-bit: expected launches {want}")
         launches[kernel] = counts[kernel]
         compare_with_cpu_copy(model, batch, f"lfc{bits}")
         profile_batch(model, batch, f"lfc{bits}")
@@ -593,7 +621,9 @@ def _launch_counts():
             "int8_attention": K.int8_attention.launches,
             "int4kv_decode_attention": K.int4kv_decode_attention.launches,
             "quant_lstm_cell": K.quant_lstm_cell.launches,
-            "quant_lstm_cell_backward": K.quant_lstm_cell_backward.launches}
+            "quant_lstm_cell_backward": K.quant_lstm_cell_backward.launches,
+            "fake_quant": K.fake_quant.launches,
+            "fake_quant_backward": K.fake_quant_backward.launches}
 
 
 # every kernel's launches on each main path, as each phase read them
@@ -963,6 +993,16 @@ LSTM_SCALE_SUM_RTOL = 1e-5  # of sum |term|, against the float64 sum of the term
 LSTM_LOSS_RTOL = 1e-3       # kernel path against module cell, each step's loss
 LSTM_UPDATE_RTOL = 0.3      # |update difference| / |update| of each weight
 LSTM_CELL_SCALE_GRAD_RTOL = 1e-4  # of the largest cell-scale gradient, first step
+# bf16 operands, first step, weights and cell scales: four bf16 steps of the
+# largest element. The per-step product's operand gradients are rounded to
+# bf16 (dh into the cell, W_hh's gradient), so where the kernel's backward and
+# autograd's differ in their float32 last bits that rounding falls either way,
+# a bf16 step (2^-8 of the value), and W_hh's gradient is summed over the 64
+# time steps in bf16, re-rounded at each addition (6.9e-3 for W_hh on an H100)
+LSTM_BF16_GRAD_RTOL = 2.0 ** -6
+# fake_quant launches a QAT step, each way: per layer the input quantizer and
+# the 4 + 4 per-gate weight quantizers of w_ih and w_hh
+LSTM_FQ_PER_STEP = LSTM_LEG["layers"] * 9
 
 
 def lstm_cell_inputs(dev, b: int, h: int, seed: int):
@@ -1166,12 +1206,44 @@ def lstm_train_step(model):
     return step
 
 
-def phase_lstm_qat(dev) -> dict:
+@contextlib.contextmanager
+def plain_lstm_cell():
+    """QuantLSTM's fused step on the cell's plain version (autograd through
+    the plain chain) instead of the cell kernels."""
+    from brevitas_tpu_torch.kernels import quant_lstm_cell_reference
+    from brevitas_tpu_torch.nn import rnn
+
+    saved = rnn.quant_lstm_cell
+    rnn.quant_lstm_cell = quant_lstm_cell_reference
+    try:
+        yield
+    finally:
+        rnn.quant_lstm_cell = saved
+
+
+class PlainRun(torch.nn.Module):
+    """Runs ``model`` inside ``context`` (a plain path's switch)."""
+
+    def __init__(self, model, context):
+        super().__init__()
+        self.model = model
+        self.context = context
+
+    def forward(self, x):
+        with self.context():
+            return self.model(x)
+
+
+def phase_lstm_qat(dev, bf16: bool = False) -> dict:
     """The leg's QAT step at full width: calibration, conversion to learned
     scales, a warm-up and LSTM_TIMED_STEPS timed Adam steps through the cell
-    kernels, held against a copy that runs the module cell."""
+    kernels, held against a copy that runs the module cell (float32) or,
+    with ``bf16`` operands (``set_compute_dtype``, bench's default), the
+    same fused step on the cell's plain version."""
     from brevitas_tpu_torch.quant.quantizers import convert_runtime_stats_to_parameter
+    from brevitas_tpu_torch.utils import set_compute_dtype
 
+    what = f"lstm_qat_{'bf16' if bf16 else 'float32'}"
     b, t, f = LSTM_LEG["batch"], LSTM_LEG["seq"], LSTM_LEG["feat"]
     launches_per_step = LSTM_LEG["layers"] * t
     gc.collect()  # the serving phases' models: keep their objects out of the step's time
@@ -1183,20 +1255,25 @@ def phase_lstm_qat(dev) -> dict:
         model(calib)  # calibration: the quantizers collect, the module cell runs
     torch.cuda.synchronize()
     calib_counts = _launch_counts()
-    print(f"[lstm_qat] calibration forward: launches {calib_counts}")
-    if any(calib_counts.values()):
-        raise AssertionError("lstm_qat: the calibration forward launched a kernel")
+    print(f"[{what}] calibration forward: launches {calib_counts}")
+    if calib_counts["quant_lstm_cell"] or calib_counts["quant_lstm_cell_backward"]:
+        raise AssertionError("lstm_qat: the calibration forward launched a cell kernel")
     converted = convert_runtime_stats_to_parameter(model)
+    if bf16:
+        set_compute_dtype(model, torch.bfloat16)
     for layer in model.lstm.layers:
         if layer._kernel_cell_args(layer._fused_cell_params(), torch.float32) is None:
             raise AssertionError("lstm_qat: a layer does not take the cell kernel")
     routing = max(check_scale_routing(dev, layer) for layer in model.lstm.layers)
-    print(f"[lstm_qat] the backward kernel's scale sums reach each layer's 4 + 3 gate scales "
+    print(f"[{what}] the backward kernel's scale sums reach each layer's 4 + 3 gate scales "
           f"and 4 scalar scales: max |grad - f64| / sum|term| {routing:.3g} (bound "
           f"{LSTM_SCALE_SUM_RTOL:g})")
     plain = copy.deepcopy(model)
-    for layer in plain.lstm.layers:
-        layer.fused_cell = False
+    if bf16:
+        plain = PlainRun(plain, plain_lstm_cell)
+    else:
+        for layer in plain.lstm.layers:
+            layer.fused_cell = False
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
 
     # the data as bench.py's _scanned_train draws it, for a warm-up and the timed steps
@@ -1222,7 +1299,8 @@ def phase_lstm_qat(dev) -> dict:
         loss = torch.nn.functional.cross_entropy(m(xs[0]), ys[0])
         loss.backward()
         first_losses.append(float(loss.detach()))
-        grads.append({n: p.grad.clone() for n, p in m.named_parameters()})
+        grads.append({n.removeprefix("model."): p.grad.clone()
+                      for n, p in m.named_parameters()})
         m.zero_grad(set_to_none=True)
     if first_losses[0] != first_losses[1]:
         raise AssertionError(f"lstm_qat: first-step losses differ {first_losses}")
@@ -1231,12 +1309,10 @@ def phase_lstm_qat(dev) -> dict:
     weight_dev = {n: v for n, v in grad_dev.items() if not n.endswith("scaling.value")}
     worst_weight = max(weight_dev, key=weight_dev.get)
     worst_scale = max((n for n in grad_dev if n not in weight_dev), key=grad_dev.get)
-    print(f"[lstm_qat] first-step loss the same bits on both paths ({first_losses[0]}); "
+    print(f"[{what}] first-step loss the same bits on both paths ({first_losses[0]}); "
           f"gradients, kernel path vs module cell, max|diff| / max|grad|: weights at most "
           f"{weight_dev[worst_weight]:.3g} ({worst_weight}), learned scales at most "
           f"{grad_dev[worst_scale]:.3g} ({worst_scale})")
-    if weight_dev[worst_weight] > 1e-4:
-        raise AssertionError(f"lstm_qat: gradient of {worst_weight} deviates")
     cell_scales = [n for n in grad_dev if ".quants." in n and n.endswith("scaling.value")]
     cell_max = max(float(grads[1][n].abs().max()) for n in cell_scales)
     cell_dev = {n: float((grads[0][n] - grads[1][n]).abs().max()) / cell_max
@@ -1245,12 +1321,16 @@ def phase_lstm_qat(dev) -> dict:
     report = {n.replace("lstm.layers.", "").replace(".scaling.value", ""): (
         float(f"{float(grads[1][n].abs().max()) / cell_max:.3g}"), float(f"{cell_dev[n]:.3g}"))
         for n in cell_scales}
-    print(f"[lstm_qat] cell-scale gradients ({len(cell_scales)} learned scales), kernel path "
-          f"vs module cell, |diff| / {cell_max:.4g} (the largest): at most "
+    print(f"[{what}] cell-scale gradients ({len(cell_scales)} learned scales), kernel path "
+          f"vs the plain cell, |diff| / {cell_max:.4g} (the largest): at most "
           f"{cell_dev[worst_cell]:.3g} ({worst_cell}); each as (|grad|, |diff|) / largest: "
           f"{report}")
-    if cell_dev[worst_cell] > LSTM_CELL_SCALE_GRAD_RTOL:
-        raise AssertionError(f"lstm_qat: gradient of {worst_cell} deviates")
+    weight_rtol, cell_rtol = ((LSTM_BF16_GRAD_RTOL, LSTM_BF16_GRAD_RTOL) if bf16
+                              else (1e-4, LSTM_CELL_SCALE_GRAD_RTOL))
+    if weight_dev[worst_weight] > weight_rtol:
+        raise AssertionError(f"{what}: gradient of {worst_weight} deviates")
+    if cell_dev[worst_cell] > cell_rtol:
+        raise AssertionError(f"{what}: gradient of {worst_cell} deviates")
 
     step = lstm_train_step(model)
     losses, times, total = [], [], None
@@ -1262,11 +1342,15 @@ def phase_lstm_qat(dev) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         counts = _launch_counts()
-        want = {k: launches_per_step if k.startswith("quant_lstm_cell") else 0 for k in counts}
+        # the cell kernels once a time step and layer; fake_quant for each
+        # layer's input quantizer and 4 + 4 gate-weight quantizers, forward
+        # and backward (each has a learned or a weight-statistics scale)
+        want = {k: launches_per_step if k.startswith("quant_lstm_cell")
+                else LSTM_FQ_PER_STEP if k.startswith("fake_quant") else 0 for k in counts}
         if counts != want:
-            raise AssertionError(f"lstm_qat step {i}: launches {counts}, expected {want}")
+            raise AssertionError(f"{what} step {i}: launches {counts}, expected {want}")
         total = counts if total is None else {k: total[k] + v for k, v in counts.items()}
-    _record_path("lstm_qat", total)
+    _record_path(what, total)
     plain_step = lstm_train_step(plain)
     plain_losses = [plain_step(xs[i], ys[i]) for i in range(n_steps)]
     torch.cuda.synchronize()
@@ -1287,13 +1371,15 @@ def phase_lstm_qat(dev) -> dict:
     # sums).
     loss_dev = max(abs(a - p) / abs(p) for a, p in zip(losses, plain_losses))
     update_dev, param_max = {}, 0.0
-    for (n, p), (_, q) in zip(model.named_parameters(), plain.named_parameters()):
+    plain_params = dict(plain.named_parameters())
+    for n, p in model.named_parameters():
+        q = plain_params.get(n, plain_params.get(f"model.{n}"))
         u_k, u_p = p.detach() - start[n], q.detach() - start[n]
         update_dev[n] = float((u_k - u_p).norm() / u_p.norm().clamp_min(1e-30))
         param_max = max(param_max, float((u_k - u_p).abs().max()))
     weights = {n: v for n, v in update_dev.items() if not n.endswith("scaling.value")}
     worst_update = max(weights, key=weights.get)
-    print(f"[lstm_qat] losses kernel path {losses}; module cell {plain_losses}; largest "
+    print(f"[{what}] losses kernel path {losses}; plain cell {plain_losses}; largest "
           f"relative deviation {loss_dev:.3g}; after {n_steps} steps, |update difference| / "
           f"|update|: weights at most {weights[worst_update]:.3g} ({worst_update}), learned "
           f"scales at most {max(update_dev.values()):.3g}; largest |parameter diff| "
@@ -1301,7 +1387,8 @@ def phase_lstm_qat(dev) -> dict:
     if loss_dev > LSTM_LOSS_RTOL or weights[worst_update] > LSTM_UPDATE_RTOL:
         raise AssertionError("lstm_qat: the kernel path and the module cell drift apart")
     ms = statistics.median(times[1:])
-    out = {"ms_per_step": ms, "sequences_per_s": b / ms * 1e3, "step_ms": times,
+    out = {"compute_dtype": "bf16" if bf16 else "float32",
+           "ms_per_step": ms, "sequences_per_s": b / ms * 1e3, "step_ms": times,
            "launches_per_step": launches_per_step, "launches": total,
            "quantizers_converted": converted, "losses": losses, "plain_losses": plain_losses,
            "loss_rel_dev": loss_dev, "param_max_dev": param_max,
@@ -1310,31 +1397,344 @@ def phase_lstm_qat(dev) -> dict:
            "weight_grad_rel_dev": weight_dev[worst_weight],
            "scale_grad_rel_dev": grad_dev[worst_scale],
            "cell_scale_grad_dev": cell_dev[worst_cell], "scale_routing_dev": routing}
-    print(f"[lstm_qat] {ms:.3f} ms per training step (median of {LSTM_TIMED_STEPS}, host "
-          f"clock with synchronize): {out['sequences_per_s']:.1f} sequences/s, on {CARD[0]}")
+    print(f"[{what}] {ms:.3f} ms per training step (median of {LSTM_TIMED_STEPS}, host "
+          f"clock with synchronize): {out['sequences_per_s']:.1f} sequences/s, "
+          f"{out['compute_dtype']} operands, on {CARD[0]}")
 
     def one_step():
         step(xs[0], ys[0])
         torch.cuda.synchronize()
 
-    out["profile"] = profile_steps(one_step, "lstm_qat", "training step", n=2, grad=True)
-    print(f"[lstm_qat] device idle share {out['profile']['idle_share']:.3f}, on {CARD[0]}")
+    out["profile"] = profile_steps(one_step, what, "training step", n=2, grad=True)
+    print(f"[{what}] device idle share {out['profile']['idle_share']:.3f}, "
+          f"{out['compute_dtype']} operands, on {CARD[0]}")
     return out
+
+
+# fake_quant at the shapes of one lfc_qat step (lfc(4, 4, 4), batch 1024):
+# (shape, forward launches, backward launches). The input x and the first
+# layer's (out, in) weight are (1024, 784); two hidden weights and three
+# activations (1024, 1024), forward and backward but the input's; the head's
+# weight (10, 1024). The data's quantizer needs no gradient.
+FQ_STEP_SHAPES = [((1024, 784), 2, 1), ((1024, 1024), 5, 5), ((10, 1024), 1, 1)]
+FQ_EDGE_SHAPE = (3, 5, 7)
+# (zero point, lo, hi, ste_clamp): LFC's narrow 4-bit grid, and zero point 3
+FQ_CASES = [(0.0, -7.0, 7.0, False), (0.0, -7.0, 7.0, True), (3.0, -8.0, 7.0, False),
+            (3.0, -8.0, 7.0, True)]
+FQ_SUM_RTOL = 1e-5  # of sum |term|, against the float64 sum of the plain terms
+FQ_BYTES = (8, 12)  # an element: forward reads x, writes y; backward reads x, g, writes dx
+
+
+def profiled_device_ms(fn, n: int = 20) -> float:
+    """Device time per call of ``fn`` from torch.profiler: the sum of its
+    kernels' device time over ``n`` calls, for an op that waits for the card
+    on the host inside each call (host gaps would enter CUDA-event times)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
+
+
+def phase_fake_quant_kernels(dev, bw) -> list:
+    """fake_quant's forward and backward kernels against their plain
+    versions on the card at LFC's step shapes and an unaligned one, every
+    case reaching both clamps: the forward and dx bit for bit, dscale and
+    dzp within FQ_SUM_RTOL * sum |term| of the float64 sum of the plain
+    terms, the same bits on a second run. Timed at the step shapes in the
+    path's case (zero point 0, the zeroing clamp, no scale gradient).
+    Returns one row per (kernel, shape)."""
+    from brevitas_tpu_torch.kernels import (
+        fake_quant,
+        fake_quant_backward,
+        fake_quant_backward_reference,
+        fake_quant_reference,
+    )
+    from brevitas_tpu_torch.kernels.fake_quant import fake_quant_scale_terms
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    # a 4-bit LFC grid's scale, divided on the card as rescaling_scale does
+    scale = torch.ones((), device=dev) / torch.full((), 7.0, device=dev)
+    rows, worst_sum = [], 0.0
+    print("[fake_quant_kernels] kernel shape | kernel_ms plain_ms library_ms bound_ms "
+          "bound_by (library: torch's fake-quant ops multiply by 1/s: the Pallas kernel's "
+          "function, not the port's)")
+    for shape in [sh for sh, _, _ in FQ_STEP_SHAPES] + [FQ_EDGE_SHAPE]:
+        x = torch.randn(shape, generator=g, device=dev)
+        gy = torch.randn(shape, generator=g, device=dev)
+        for zp_v, lo, hi, ste in FQ_CASES:
+            zp = torch.full((), zp_v, device=dev)
+            codes = torch.round(x / scale + zp)
+            if not (bool((codes < lo).any()) and bool((codes > hi).any())):
+                raise AssertionError(f"fake_quant_kernels: a clamp is not reached at {shape}")
+            with torch.no_grad():
+                y_k = fake_quant(x, scale, zp, lo, hi, ste)
+                y_r = fake_quant_reference(x, scale, zp, lo, hi, ste)
+            got = fake_quant_backward(x, scale, zp, gy, lo, hi, ste)
+            again = fake_quant_backward(x, scale, zp, gy, lo, hi, ste)
+            want = fake_quant_backward_reference(x, scale, zp, gy, lo, hi, ste)
+            ds_terms, dz_terms, _ = fake_quant_scale_terms(x, scale, zp, gy, lo, hi, ste)
+            torch.cuda.synchronize()
+            case = f"{shape} zp {zp_v} lo {lo} hi {hi} ste_clamp {ste}"
+            if not torch.equal(y_k, y_r):
+                raise AssertionError(f"fake_quant differs from its plain version at {case}: "
+                                     f"{int((y_k != y_r).sum())} of {y_r.numel()}")
+            if not torch.equal(got[0], want[0]):
+                raise AssertionError(f"fake_quant_backward dx differs at {case}: "
+                                     f"{int((got[0] != want[0]).sum())} of {x.numel()}")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"fake_quant_backward: two runs differ at {case}")
+            for name, k_, terms in (("dscale", got[1], ds_terms), ("dzp", got[2], dz_terms)):
+                exact, mass = float(terms.sum()), float(terms.abs().sum())
+                err = abs(float(k_) - exact)
+                if err > FQ_SUM_RTOL * mass:
+                    raise AssertionError(f"fake_quant_backward {name} at {case}: |kernel - f64| "
+                                         f"{err:.3g} of sum |term| {mass:.3g}")
+                worst_sum = max(worst_sum, err / mass if mass else 0.0)
+        print(f"[fake_quant_kernels] {shape}: 4 cases, both clamps reached; forward and dx bit "
+              f"for bit, dscale/dzp within {worst_sum:.3g} of sum |term|, same bits on a "
+              "second run")
+        if shape == FQ_EDGE_SHAPE:
+            continue
+
+        # times in the path's case
+        n = x.numel()
+        xr = x.detach().requires_grad_()
+        s_host = float(scale)
+        with torch.no_grad():
+            t_fk = cuda_ms(lambda: fake_quant(x, scale, 0.0, -7.0, 7.0))
+            t_fp = cuda_ms(lambda: fake_quant_reference(x, scale, 0.0, -7.0, 7.0))
+            t_fl = cuda_ms(lambda: torch.fake_quantize_per_tensor_affine(x, s_host, 0, -7, 7))
+        t_bk = cuda_ms(lambda: fake_quant_backward(x, scale, 0.0, gy, -7.0, 7.0, sums=False))
+        t_bks = cuda_ms(lambda: fake_quant_backward(x, scale, 0.0, gy, -7.0, 7.0))
+        y_plain = fake_quant_reference(xr, scale, 0.0, -7.0, 7.0)
+        t_bp = cuda_ms(lambda: torch.autograd.grad(y_plain, xr, gy, retain_graph=True))
+        # the learnable op's backward reads its scale on the host (.item())
+        # at every call: its device time from the profiler
+        s_l = scale.detach().reshape(1)
+        z_l = torch.zeros(1, device=dev)
+        t_bl = profiled_device_ms(
+            lambda: torch.ops.aten._fake_quantize_learnable_per_tensor_affine_backward(
+                gy, x, s_l, z_l, -7, 7, 1.0))
+        for name, t_k, t_p, t_l, nbytes in (
+                ("fake_quant", t_fk, t_fp, t_fl, FQ_BYTES[0] * n),
+                ("fake_quant_backward", t_bk, t_bp, t_bl, FQ_BYTES[1] * n)):
+            t_b = nbytes / bw * 1e3
+            row = dict(kernel=name, shape=list(shape), ms=t_k, plain_ms=t_p, library_ms=t_l,
+                       bound_ms=t_b, bound_by="bytes", err=0.0, scale_sum_ratio=worst_sum)
+            if name == "fake_quant_backward":
+                row["ms_with_sums"] = t_bks
+            rows.append(row)
+            print(f"[fake_quant_kernels] {name} {shape} | {t_k:.4f} {t_p:.4f} {t_l:.4f} "
+                  f"{t_b:.3g} bytes" + (f" | with dscale/dzp sums {t_bks:.4f}"
+                                        if name == "fake_quant_backward" else ""))
+    return rows
+
+
+def fake_quant_summary(rows, name, launches) -> dict:
+    """A fake_quant kernel's times over one lfc_qat step: its launches at
+    the step's shapes."""
+    idx = 1 if name == "fake_quant" else 2
+    per_shape = {tuple(r["shape"]): r for r in rows if r["kernel"] == name}
+    sums = {key: sum(per_shape[sh][key] * sh_n[idx - 1] for sh, *sh_n in FQ_STEP_SHAPES)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    entry = {
+        "name": name, "route": "cuda", "source": "brevitas_tpu_torch/csrc/fake_quant.cu",
+        "replaces": "brevitas_tpu/kernels/fake_quant.py:110", "launches": launches,
+        "max_abs_err": 0.0, **sums, "bound_by": "bytes",
+        "per": f"one lfc_qat step at batch {LFC_QAT_BATCH}: "
+               f"{sum(c[idx] for c in FQ_STEP_SHAPES)} launches",
+        "library_note": "torch.fake_quantize_per_tensor_affine (forward) and the backward of "
+                        "torch._fake_quantize_learnable_per_tensor_affine multiply by 1/s: they "
+                        "compute the Pallas kernel's function, not the port's",
+        "scale_sum_ratio": max(r["scale_sum_ratio"] for r in rows),
+    }
+    if name == "fake_quant_backward":
+        entry["ms_with_sums"] = sum(per_shape[sh]["ms_with_sums"] * nb
+                                    for sh, _, nb in FQ_STEP_SHAPES)
+    return entry
+
+
+@contextlib.contextmanager
+def plain_fake_quant():
+    """The quantizers' per-tensor fake-quant on the plain chain instead of
+    the fake_quant kernels."""
+    from brevitas_tpu_torch.kernels import fake_quant_reference
+    from brevitas_tpu_torch.quant import quantizers
+
+    saved = quantizers.fake_quant
+    quantizers.fake_quant = fake_quant_reference
+    try:
+        yield
+    finally:
+        quantizers.fake_quant = saved
+
+
+# bench.py's lfc_int4_qat leg (bench.py:388-400, _scanned_train :226-262):
+# lfc(4, 4, 4, dropout=0.0), batch 1024, square hinge, Adam lr 1e-3,
+# clip_weights(-1, 1); one scanned epoch is 30 steps
+LFC_QAT_BATCH = 1024
+LFC_QAT_STEPS = 30
+LFC_QAT_LR = 1e-3
+LFC_QAT_CPU_LOSS_RTOL = 1e-5  # the card's first loss against a CPU copy's
+# fake_quant launches a step: 4 weight and 4 activation quantizers forward;
+# the backward of all but the data's input quantizer
+LFC_QAT_FQ = (8, 7)
+
+
+def phase_lfc_qat(dev, bf16: bool) -> dict:
+    """bench's lfc_int4_qat step at full width through the port's trainer
+    step (examples.bnn_pynq.train_step), a warm-up and LFC_QAT_STEPS timed
+    steps, in bf16 operands (bench's default) or float32. A copy on the card
+    runs the plain chain in every quantizer: the warm-up step's loss and
+    every gradient the same bits; each later step's loss difference
+    reported. A CPU copy's first loss within LFC_QAT_CPU_LOSS_RTOL (BatchNorm
+    and TensorNorm sum in another order on the CPU)."""
+    from brevitas_tpu_torch.examples import bnn_pynq
+    from brevitas_tpu_torch.models import lfc
+    from brevitas_tpu_torch.utils import set_compute_dtype
+
+    what = f"lfc_qat_{'bf16' if bf16 else 'float32'}"
+    gc.collect()
+    model = lfc(4, 4, 4, dropout=0.0, generator=torch.Generator().manual_seed(0), device=dev)
+    if bf16:
+        set_compute_dtype(model, torch.bfloat16)
+    plain = copy.deepcopy(model)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    # the data as bench.py's _scanned_train draws it
+    rng = np.random.default_rng(0)
+    xs_np = rng.random((LFC_QAT_STEPS, LFC_QAT_BATCH, 28, 28, 1), dtype=np.float32)
+    ys_np = rng.integers(0, 10, (LFC_QAT_STEPS, LFC_QAT_BATCH)).astype(np.int32)
+    xs, ys = torch.from_numpy(xs_np).to(dev), torch.from_numpy(ys_np).to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=LFC_QAT_LR)
+    plain_opt = torch.optim.Adam(plain.parameters(), lr=LFC_QAT_LR)
+
+    # the warm-up step on both paths: the same loss and gradient bits
+    _reset_launch_counts()
+    loss0 = bnn_pynq.train_step(model, opt, xs[0], ys[0])
+    torch.cuda.synchronize()
+    warm_counts = _launch_counts()
+    with plain_fake_quant():
+        plain0 = bnn_pynq.train_step(plain, plain_opt, xs[0], ys[0])
+    torch.cuda.synchronize()
+    if not torch.equal(loss0, plain0):
+        raise AssertionError(f"{what}: first-step loss {float(loss0)} differs from the plain "
+                             f"chain's {float(plain0)}")
+    plain_params = dict(plain.named_parameters())
+    differ = [n for n, p in model.named_parameters()
+              if not torch.equal(p.grad, plain_params[n].grad)]
+    if differ:
+        raise AssertionError(f"{what}: first-step gradients differ from the plain chain's: "
+                             f"{differ}")
+    with torch.no_grad():
+        cpu_loss = float(bnn_pynq.sqr_hinge_loss(cpu_model(torch.from_numpy(xs_np[0])),
+                                                 torch.from_numpy(ys_np[0])))
+    cpu_dev = abs(float(loss0) - cpu_loss) / abs(cpu_loss)
+    print(f"[{what}] warm-up step: loss {float(loss0)} the same bits as the plain chain's, "
+          f"all {len(plain_params)} gradients the same bits; CPU copy's loss {cpu_loss} "
+          f"(relative {cpu_dev:.3g}); launches {warm_counts}")
+    if cpu_dev > LFC_QAT_CPU_LOSS_RTOL:
+        raise AssertionError(f"{what}: the card's first loss is {cpu_dev:.3g} from a CPU copy's")
+    fq_want = {"fake_quant": LFC_QAT_FQ[0], "fake_quant_backward": LFC_QAT_FQ[1]}
+    if any(warm_counts[k] != v for k, v in fq_want.items()):
+        raise AssertionError(f"{what}: fake_quant launches {warm_counts}, expected {fq_want}")
+
+    # the timed steps: one scanned epoch of bench
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [bnn_pynq.train_step(model, opt, xs[i], ys[i]) for i in range(LFC_QAT_STEPS)]
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    counts = _launch_counts()
+    _record_path(what, {k: v + warm_counts[k] for k, v in counts.items()})
+    want = {k: LFC_QAT_STEPS * fq_want.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts} over {LFC_QAT_STEPS} steps, "
+                             f"expected {want}")
+    with plain_fake_quant():
+        plain_losses = [bnn_pynq.train_step(plain, plain_opt, xs[i], ys[i])
+                        for i in range(LFC_QAT_STEPS)]
+    losses = [float(v) for v in losses]
+    plain_losses = [float(v) for v in plain_losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: losses {losses}")
+    step_dev = [abs(a - b) for a, b in zip(losses, plain_losses)]
+    param_dev = max(float((p.detach() - plain_params[n].detach()).abs().max())
+                    for n, p in model.named_parameters())
+    clip = max(float(lyr.weight.detach().abs().max()) for lyr in model.modules()
+               if hasattr(lyr, "weight_quant"))
+    if clip > 1.0:
+        raise AssertionError(f"{what}: a weight outside [-1, 1] after clip_weights: {clip}")
+    ms = total_ms / LFC_QAT_STEPS
+    out = {"compute_dtype": "bf16" if bf16 else "float32", "ms_per_step": ms,
+           "images_per_s": LFC_QAT_BATCH / ms * 1e3, "losses": losses,
+           "first_loss": float(loss0), "cpu_first_loss_rel_dev": cpu_dev,
+           "loss_dev_per_step": step_dev, "param_max_dev": param_dev,
+           "fake_quant_per_step": counts["fake_quant"] / LFC_QAT_STEPS,
+           "fake_quant_backward_per_step": counts["fake_quant_backward"] / LFC_QAT_STEPS}
+    print(f"[{what}] {LFC_QAT_STEPS} steps: {ms:.3f} ms per step (host clock over the epoch, "
+          f"synchronized at its end), {out['images_per_s']:.0f} images/s, "
+          f"{out['compute_dtype']} operands, on {CARD[0]}; fake_quant launches per step "
+          f"{out['fake_quant_per_step']:g} forward, {out['fake_quant_backward_per_step']:g} "
+          f"backward; kernel path vs plain chain: loss |diff| per step max "
+          f"{max(step_dev):.3g} ({step_dev}), parameters max |diff| {param_dev:.3g}")
+
+    def one_step():
+        bnn_pynq.train_step(model, opt, xs[0], ys[0])
+        torch.cuda.synchronize()
+
+    out["profile"] = profile_steps(one_step, what, "training step", n=3, grad=True)
+    print(f"[{what}] device busy {out['profile']['busy_ms']:.4f} ms a step, idle share "
+          f"{out['profile']['idle_share']:.3f}, {out['compute_dtype']} operands, on {CARD[0]}")
+    return out
+
+
+def phase_bnn_pynq(dev) -> dict:
+    """The trainer's entry point on the card: examples.bnn_pynq.main, LFC
+    4-bit, synthetic data, one epoch (20 steps at batch 100, then the
+    evaluation of 512 images in 2 batches)."""
+    from brevitas_tpu_torch.examples import bnn_pynq
+
+    _reset_launch_counts()
+    acc = bnn_pynq.main(["--network", "LFC_4W4A", "--dataset", "synthetic", "--epochs", "1",
+                         "--device", str(dev)])
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    _record_path("bnn_pynq", counts)
+    steps, evals = 2048 // 100, 2
+    want = {k: 0 for k in counts}
+    want.update(fake_quant=LFC_QAT_FQ[0] * (steps + evals),
+                fake_quant_backward=LFC_QAT_FQ[1] * steps)
+    print(f"[bnn_pynq] main: val acc {acc} (synthetic labels: chance), launches {counts}")
+    if counts != want:
+        raise AssertionError(f"bnn_pynq: launches {counts}, expected {want}")
+    if not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"bnn_pynq: accuracy {acc}")
+    return {"val_acc": acc, "launches": counts}
 
 
 def lstm_summary(rows, name, lstm, replaces):
     """The cell kernel's row at the leg's shape; its launches over the QAT
-    phase's warm-up and timed steps."""
+    phases' warm-ups and timed steps (float32 and bf16 operands)."""
     row = next(r for r in rows if r["kernel"] == name and (r["b"], r["h"]) == (64, 512))
     return {
         "name": name, "route": "cuda", "source": "brevitas_tpu_torch/csrc/quant_lstm_cell.cu",
-        "replaces": replaces, "launches": lstm["launches"][name],
+        "replaces": replaces, "launches": sum(run["launches"][name] for run in lstm.values()),
         "max_abs_err": max(r["err"] for r in rows if r["kernel"] == name),
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": None,
         "library_note": "no PyTorch call computes this function (six fake-quant stages "
                         "around the LSTM nonlinearities)",
-        "per": "one launch at B 64, H 512", "launches_per_step": lstm["launches_per_step"],
+        "per": "one launch at B 64, H 512",
+        "launches_per_step": lstm["float32"]["launches_per_step"],
         "unaligned_shape": {k: v for k, v in next(
             r for r in rows if r["kernel"] == name and (r["b"], r["h"]) != (64, 512)).items()},
     }
@@ -1411,6 +1811,7 @@ def main() -> int:
     rows += phase_int4_kernel(dev, peaks)
     attn_rows = phase_attention_kernels(dev, peaks)
     lstm_rows = phase_lstm_kernels(dev, VECTOR_PEAKS[sheet], peaks[0])
+    fq_rows = phase_fake_quant_kernels(dev, peaks[0])
     serve_out, serve_int8 = phase_serve(dev)
     lfc_launches = phase_lfc(dev)
     prefill = phase_llama_prefill(dev)
@@ -1418,7 +1819,9 @@ def main() -> int:
     w4a8_prefill = phase_llama_prefill(dev, w4a8=True)
     w4a8_decode = phase_llama_decode(dev, None, w4a8=True)
     serve_decode = phase_serve_decode(dev)
-    lstm = phase_lstm_qat(dev)
+    lstm = {"float32": phase_lstm_qat(dev), "bf16": phase_lstm_qat(dev, bf16=True)}
+    lfc_qat = {"bf16": phase_lfc_qat(dev, bf16=True), "float32": phase_lfc_qat(dev, bf16=False)}
+    trainer = phase_bnn_pynq(dev)
 
     int8_by_path = {"serve": serve_int8, "lfc8": lfc_launches["int8_matmul"],
                     "llama_prefill": prefill["launches"]["int8_matmul"],
@@ -1476,6 +1879,9 @@ def main() -> int:
         lstm_summary(lstm_rows, "quant_lstm_cell", lstm, "brevitas_tpu/kernels/lstm_cell.py:176"),
         lstm_summary(lstm_rows, "quant_lstm_cell_backward", lstm,
                      "brevitas_tpu/kernels/lstm_cell.py:224"),
+        *(fake_quant_summary(fq_rows, name, sum(PATH_COUNTS[f"lfc_qat_{d}"][name]
+                                                for d in lfc_qat))
+          for name in ("fake_quant", "fake_quant_backward")),
     ], "serve": serve_out,
         "llama_prefill": {k: v for k, v in prefill.items() if k != "profile"},
         "llama_decode": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
@@ -1484,7 +1890,11 @@ def main() -> int:
         "llama_w4a8_decode": {k: v for k, v in w4a8_decode.items() if k != "profile"},
         "serve_decode": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
                          for k, v in serve_decode.items()},
-        "lstm_qat": {k: v for k, v in lstm.items() if k != "profile"},
+        "lstm_qat": {d: {k: v for k, v in run.items() if k != "profile"}
+                     for d, run in lstm.items()},
+        "lfc_qat": {d: {k: v for k, v in run.items() if k != "profile"}
+                    for d, run in lfc_qat.items()},
+        "bnn_pynq": trainer,
         "seconds": time.perf_counter() - t0}
     for entry in report["kernels"]:
         entry["launches_by_path"] = {path: counts[entry["name"]]

@@ -74,6 +74,7 @@ from brevitas_tpu.quant import presets as jax_presets
 from brevitas_tpu.quant.quantizers import (
     convert_runtime_stats_to_parameter as jax_convert_runtime_stats_to_parameter,
 )
+from brevitas_tpu.utils import set_compute_dtype as jax_set_compute_dtype
 from brevitas_tpu_torch.interop import load_jax_state
 from brevitas_tpu_torch.kernels import (
     quant_lstm_cell,
@@ -88,6 +89,7 @@ from brevitas_tpu_torch.quant.quantizers import (
     ParameterScaling,
     convert_runtime_stats_to_parameter,
 )
+from brevitas_tpu_torch.utils import set_compute_dtype
 
 torch.set_num_threads(1)
 
@@ -179,21 +181,31 @@ def jax_run():
     r["calibrated"] = jax_state_arrays(jm)
     r["n_converted"] = jax_convert_runtime_stats_to_parameter(jm)
     r["converted"] = jax_state_arrays(jm)
+
+    # bench's default: bf16 operands of the fused step (set_compute_dtype),
+    # from the same converted state, in the same jit as the training step
+    jb = nnx.clone(jm)
+    jax_set_compute_dtype(jb, jnp.bfloat16)
     opt = nnx.Optimizer(jm, optax.adam(LR), wrt=nnx.Param)
 
+    def loss_fn(mm, xv, yv):
+        out, (h_n, c_n) = mm.lstm(xv)
+        logits = mm.head(out[:, -1])
+        ce = optax.softmax_cross_entropy_with_integer_labels(logits, yv).mean()
+        return ce, (out, h_n, c_n)
+
     @nnx.jit
-    def step(m, o, xv, yv):
-        def loss_fn(mm):
-            out, (h_n, c_n) = mm.lstm(xv)
-            logits = mm.head(out[:, -1])
-            ce = optax.softmax_cross_entropy_with_integer_labels(logits, yv).mean()
-            return ce, (out, h_n, c_n)
-
-        (loss, aux), grads = nnx.value_and_grad(loss_fn, has_aux=True)(m)
+    def step(m, o, mb, xv, yv):
+        bf16 = nnx.value_and_grad(loss_fn, has_aux=True)(mb, xv, yv)
+        (loss, aux), grads = nnx.value_and_grad(loss_fn, has_aux=True)(m, xv, yv)
         o.update(m, grads)
-        return loss, aux, grads
+        return loss, aux, grads, bf16
 
-    loss, (out, h_n, c_n), grads = step(jm, opt, jnp.asarray(x), jnp.asarray(y))
+    loss, (out, h_n, c_n), grads, ((loss_b, (out_b, _, _)), grads_b) = step(
+        jm, opt, jb, jnp.asarray(x), jnp.asarray(y))
+    r["bf16"] = {"loss": float(loss_b), "outputs": np.asarray(out_b),
+                 "grads": {".".join(map(str, path)): np.asarray(v[...])
+                           for path, v in nnx.to_flat_state(grads_b)}}
     r["loss"] = float(loss)
     r["outputs"] = tuple(np.asarray(a) for a in (out, h_n, c_n))
     r["grads"] = {".".join(map(str, path)): np.asarray(v[...])
@@ -453,6 +465,55 @@ def test_adam_step_matches_jax(jax_run, port_step):
         # (about lr): p + u cancels where u is about -p
         operand = np.maximum(np.abs(jax_run["converted"][path]), np.float32(LR))
         tol = 4 * np.spacing(operand) + np.abs(first_update(g_port) - first_update(g_jax))
+        assert np.all(np.abs(got - want) <= tol), path
+
+
+@pytest.fixture(scope="module")
+def port_bf16(jax_run):
+    """The fused path with bf16 operands (``set_compute_dtype``) from the
+    JAX model's converted state: outputs, loss and gradients."""
+    pm = port_model(jax_run["converted"], converted=True)
+    set_compute_dtype(pm, torch.bfloat16)
+    out, _ = pm.lstm(torch.from_numpy(jax_run["x"]))
+    loss = torch.nn.functional.cross_entropy(pm.head(out[:, -1]),
+                                             torch.from_numpy(jax_run["y"]).long())
+    loss.backward()
+    return {"loss": float(loss.detach()), "outputs": out.detach().numpy(),
+            "grads": {p: port_tensor(pm, p, grad=True) for p in PARAMS},
+            "dtypes": {layer.compute_dtype for layer in pm.lstm.layers}}
+
+
+def _bf16_ulp(v: np.ndarray) -> np.ndarray:
+    e = np.floor(np.log2(np.maximum(np.abs(v), np.finfo(np.float32).tiny)))
+    return np.exp2(e - 7).astype(np.float32)
+
+
+@pytest.mark.parametrize("what", ["outputs", "gradients"])
+def test_bf16_fused_path_matches_jax(jax_run, port_bf16, what):
+    """bench's default run of the leg: x_proj and W_hh stored in bf16, the
+    per-step product of a bf16-rounded h returning float32, the cell in
+    float32. Outputs and loss as in float32 (exact; rtol 1e-6). Gradients:
+    each operand gradient of the bf16 product is rounded to bf16 in both
+    packages, so where their float32 inputs to that rounding differ in the
+    last bits it falls either way (in 0.01-0.3 % of a weight's elements at
+    these inputs), and W_hh's gradient is summed over the time steps in
+    bf16 in both (the scan accumulates the cotangent of its bf16 constant in
+    bf16, autograd a bf16 tensor's gradient), so a flipped step moves the
+    sum by up to an ulp at each later addition: each weight element within
+    four bf16 ulps of its own size plus 1e-3 of its largest element
+    (measured 2.0 ulps or 9.5e-4), each learned scale's within 1e-5 of the
+    largest learned-scale gradient (measured 3.7e-7)."""
+    ref = jax_run["bf16"]
+    assert port_bf16["dtypes"] == {torch.bfloat16}
+    if what == "outputs":
+        np.testing.assert_array_equal(port_bf16["outputs"], ref["outputs"])
+        assert port_bf16["loss"] == pytest.approx(ref["loss"], rel=1e-6)
+        return
+    scale_max = max(np.abs(ref["grads"][p]).max() for p in SCALES)
+    for path in PARAMS:
+        got, want = port_bf16["grads"][path], ref["grads"][path]
+        tol = (1e-5 * scale_max if path in SCALES
+               else 1e-3 * np.abs(want).max() + 4 * _bf16_ulp(want))
         assert np.all(np.abs(got - want) <= tol), path
 
 
