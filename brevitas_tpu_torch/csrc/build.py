@@ -4,8 +4,10 @@ Each ``*.cu`` source here compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds). The build
 runs at first use into ``csrc/build/`` (ignored by git), one ``nvcc`` per
 source, all started together. A library's file name carries a hash of its
-source and flags, so an edited source rebuilds and a stale library is never
-loaded.
+source, the shared headers (``*.cuh``) and the flags, so an edited source or
+header rebuilds and a stale library is never loaded. The tensor-core GEMMs
+fetch ``cuTensorMapEncodeTiled`` from the driver through the runtime
+(``cudaGetDriverEntryPointByVersion``), so no ``-lcuda`` is needed.
 
     python -m brevitas_tpu_torch.csrc.build     # build every kernel
 """
@@ -49,7 +51,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(HERE.glob("*.cuh")))
+    digest = hashlib.sha256(SOURCES[name].read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

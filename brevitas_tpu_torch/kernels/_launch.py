@@ -18,6 +18,15 @@ def bind(library: str, symbol: str, n_pointers: int, n_ints: int):
     return fn
 
 
+def bind_plan(library: str, symbol: str):
+    """The C function ``symbol(M, N, K, x, w)`` of ``library`` that returns
+    the variant its launcher takes for those arguments, packed in an int."""
+    fn = getattr(build.load(library), symbol)
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def check_matrix(name: str, t: torch.Tensor, dtype: torch.dtype,
                  device: torch.device) -> None:
     if t.dtype != dtype or t.ndim != 2:

@@ -6,8 +6,8 @@ Packing layout (``pack_int4_rows``): byte row j of the (K/2, N) packed array
 holds weight row j in its LOW nibble and weight row j + K/2 in its HIGH
 nibble. On a CUDA tensor ``int4_matmul`` and ``int4_weight_only_matmul``
 launch the hand-written Hopper kernels ``csrc/int4_matmul.cu`` and
-``csrc/int4_weight_only_matmul.cu``; on a CPU tensor they take the plain
-versions.
+``csrc/int4_weight_only_matmul.cu`` (bf16 ``wgmma`` on the tensor cores);
+on a CPU tensor they take the plain versions.
 """
 
 import functools
@@ -115,6 +115,23 @@ def _launcher():
                         "int4_weight_only_matmul_launch", 5, 4)
 
 
+@functools.lru_cache(maxsize=None)
+def _planner():
+    return _launch.bind_plan("int4_weight_only_matmul", "int4_weight_only_matmul_plan")
+
+
+def int4_weight_only_matmul_plan(x: torch.Tensor, w_packed: torch.Tensor) -> str:
+    """The variant the CUDA launcher takes, e.g. ``"F256 BT32 x:vec16 w:tma"``:
+    features and tokens per tile, x by 16-byte ``cp.async`` or scalar loads,
+    the packed weights by TMA, by one bulk copy per slab (a weight no wider
+    than 128 whose row stride TMA cannot describe) or by masked byte loads."""
+    k2, n = w_packed.shape
+    code = _planner()(x.shape[0], n, k2, x.data_ptr(), w_packed.data_ptr())
+    w_load = ("tma", "bulk", "bytes")[(code >> 17) & 3]
+    return (f"F{128 * ((code >> 8) & 0xFF)} BT{code & 0xFF} "
+            f"x:{'vec16' if (code >> 16) & 1 else 'scalar'} w:{w_load}")
+
+
 def int4_weight_only_matmul(x: torch.Tensor, w_packed: torch.Tensor, w_scale,
                             bias: Optional[torch.Tensor] = None,
                             act: Optional[str] = None) -> torch.Tensor:
@@ -136,7 +153,8 @@ def int4_weight_only_matmul(x: torch.Tensor, w_packed: torch.Tensor, w_scale,
     ws = _launch.f32_vector("w_scale", w_scale, n, device, broadcast=True)
     b = None if bias is None else _launch.f32_vector("bias", bias, n, device)
     y = torch.empty((m, n), dtype=torch.float32, device=device)
-    _launch.launch(_launcher(), "int4_weight_only_matmul", device,
+    _launch.launch(_launcher(), f"int4_weight_only_matmul at (M, K, N) = ({m}, {k}, {n})",
+                   device,
                    x.data_ptr(), w_packed.data_ptr(), ws.data_ptr(),
                    None if b is None else b.data_ptr(), y.data_ptr(),
                    m, n, k2, relu)

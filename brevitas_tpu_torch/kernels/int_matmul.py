@@ -4,9 +4,11 @@
     y = act( (x_i8 @ w_i8)_i32 * (x_scale * w_scale[col]) + bias )
 
 On a CUDA tensor ``int8_matmul`` launches the hand-written Hopper kernel
-``csrc/int8_matmul.cu``; on a CPU tensor it takes the plain version. The
-kernel equals the plain version bit for bit: the accumulation is exact and
-the epilogue rounds each step in the same order.
+``csrc/int8_matmul.cu`` (s8 ``wgmma`` on the tensor cores; its launcher
+picks a tiled or a cluster split-K variant, :func:`int8_matmul_plan`); on a
+CPU tensor it takes the plain version. The kernel equals the plain version
+bit for bit: the accumulation is exact and the epilogue rounds each step in
+the same order.
 """
 
 import functools
@@ -38,8 +40,33 @@ def int8_matmul_reference(x_i8: torch.Tensor, w_i8: torch.Tensor, x_scale,
 
 
 @functools.lru_cache(maxsize=None)
+def _planner():
+    return _launch.bind_plan("int8_matmul", "int8_matmul_plan")
+
+
+def int8_matmul_plan(x_i8: torch.Tensor, w_i8: torch.Tensor) -> str:
+    """The variant the CUDA launcher takes for these operands, e.g.
+    ``"tiled BT128 x:tma w:tma"`` or ``"splitk8 BT16 x:tma w:bytes"``: tokens
+    per tile, K split over a cluster of CTAs or not, and each operand loaded
+    by TMA or by the producer's masked byte loads (a stride TMA cannot
+    describe)."""
+    m, k = x_i8.shape
+    code = _planner()(m, w_i8.shape[1], k, x_i8.data_ptr(), w_i8.data_ptr())
+    splits = (code >> 8) & 0xFF
+    kind = "tiled" if splits == 1 else f"splitk{splits}"
+    load = {0: "bytes", 1: "tma"}
+    return (f"{kind} BT{code & 0xFF} x:{load[(code >> 16) & 1]} "
+            f"w:{load[(code >> 17) & 1]}")
+
+
+@functools.lru_cache(maxsize=None)
 def _launcher():
     return _launch.bind("int8_matmul", "int8_matmul_launch", 6, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _splits_launcher():
+    return _launch.bind("int8_matmul", "int8_matmul_launch_splits", 6, 5)
 
 
 def int8_matmul(x_i8: torch.Tensor, w_i8: torch.Tensor, x_scale, w_scale,
@@ -50,6 +77,20 @@ def int8_matmul(x_i8: torch.Tensor, w_i8: torch.Tensor, x_scale, w_scale,
     "relu". Returns (M, N) float32."""
     if x_i8.device.type == "cpu":
         return int8_matmul_reference(x_i8, w_i8, x_scale, w_scale, bias, act)
+    y = launch_int8_matmul(x_i8, w_i8, x_scale, w_scale, bias, act)
+    int8_matmul.launches += 1
+    return y
+
+
+int8_matmul.launches = 0
+
+
+def launch_int8_matmul(x_i8: torch.Tensor, w_i8: torch.Tensor, x_scale, w_scale,
+                       bias: Optional[torch.Tensor] = None, act: Optional[str] = None,
+                       splits: int = 0) -> torch.Tensor:
+    """The CUDA launch behind :func:`int8_matmul`, uncounted; ``splits``
+    forces that many K splits (1 = the tiled variant, 0 = the launcher's
+    plan). For measuring the variants against each other."""
     if x_i8.device.type != "cuda":
         raise ValueError(f"int8_matmul runs on cuda or cpu, not {x_i8.device}")
     device = x_i8.device
@@ -67,12 +108,11 @@ def int8_matmul(x_i8: torch.Tensor, w_i8: torch.Tensor, x_scale, w_scale,
     ws = _launch.f32_vector("w_scale", w_scale, n, device, broadcast=True)
     b = None if bias is None else _launch.f32_vector("bias", bias, n, device)
     y = torch.empty((m, n), dtype=torch.float32, device=device)
-    _launch.launch(_launcher(), "int8_matmul", device,
-                   x_i8.data_ptr(), w_i8.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-                   None if b is None else b.data_ptr(), y.data_ptr(),
-                   m, n, k, relu)
-    int8_matmul.launches += 1
+    args = (x_i8.data_ptr(), w_i8.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+            None if b is None else b.data_ptr(), y.data_ptr(), m, n, k, relu)
+    name = f"int8_matmul at (M, K, N) = ({m}, {k}, {n})"
+    if splits:
+        _launch.launch(_splits_launcher(), name, device, *args, splits)
+    else:
+        _launch.launch(_launcher(), name, device, *args)
     return y
-
-
-int8_matmul.launches = 0

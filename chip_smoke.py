@@ -14,12 +14,16 @@ Phases; any failure exits non-zero and prints no result:
              {(784, 1024), (1024, 1024), (1024, 10)}), int8_matmul and
              int4_matmul at the Llama shapes (M in {4096, 16}, the four (K, N)
              of a block and the head), int8_matmul at serve --decode's four
-             shapes (M 32) and int4_matmul at ragged shapes, on
-             random full-range codes, held against their plain PyTorch
-             versions on the card: int8 and W4A8 bit for bit, w4a16 within
-             1e-5 * sum|bf16(x)||w| * |w_scale|. Median times (CUDA events) of
-             the kernel, the plain version and one library call, beside the
-             least time the card could take.
+             shapes (M 32), and both tensor-core GEMMs and int4_matmul at
+             ragged shapes that reach every launcher variant and load path,
+             on random full-range codes, held against their plain PyTorch
+             versions on the card: int8 (with and without bias and ReLU) and
+             W4A8 bit for bit, w4a16 within 1e-5 * sum|bf16(x)||w| *
+             |w_scale| (its largest share of that bound printed). Each shape
+             prints the variant its launcher took. Median times (CUDA
+             events) of the kernel, the plain version and one library call,
+             beside the least time the card could take; int8_matmul also at
+             every forced K-split count (tiled against split-K).
 4. attn    - int8_attention at (BH, T, D) = (128, 512, 64) causal and a ragged
              grouped-query shape; int4kv_decode_attention at (BH, l_half, D) =
              (256, 512, 64) with pos in {63, 0, 511, 1023}. Held to the plain
@@ -211,7 +215,8 @@ def phase_build():
           f"{time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line.lower() for w in ("registers", "spill", "error", "warning",
+                                                 "wgmma", "performance")):
                 print(f"[build] {name}: {line.strip()}")
 
 
@@ -228,8 +233,58 @@ def phase_card() -> str:
     return line
 
 
+# ragged shapes that reach every variant and edge path of the two tensor-core
+# GEMMs: split-K and tiled launches, TMA and masked byte loads (N % 16 != 0,
+# K % 16 != 0), ragged last tiles in M, N and K, and K/2 off the 32-row slab
+INT8_EDGE_SHAPES = [(1, 784, 10), (37, 784, 1024), (5, 100, 3), (200, 2752, 1000)]
+W4A16_EDGE_SHAPES = [(1, 784, 10), (37, 100, 3), (1024, 784, 1000)]
+
+
+def check_int8(x, w, xs, ws, b, what) -> float:
+    """int8_matmul bit for bit against its plain version, with and without
+    bias and ReLU; returns the largest difference (0)."""
+    from brevitas_tpu_torch.kernels import int8_matmul, int8_matmul_reference
+
+    for bias in (b, None):
+        for act in (None, "relu"):
+            got = int8_matmul(x, w, xs, ws, bias, act=act)
+            want = int8_matmul_reference(x, w, xs, ws, bias, act=act)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"int8_matmul differs from its plain version at {what} act={act} "
+                    f"bias={bias is not None}: max {float((got - want).abs().max())}")
+    return float((got - want).abs().max())
+
+
+def check_w4a16(x, wp, ws, b, what) -> tuple:
+    """int4_weight_only_matmul within 1e-5 * sum|bf16(x)||w| * |w_scale| of its
+    plain version, without bias and with bias and ReLU; returns the largest
+    difference without bias and the largest ratio of a difference to its
+    bound."""
+    from brevitas_tpu_torch.kernels import (
+        int4_weight_only_matmul,
+        int4_weight_only_matmul_reference,
+    )
+
+    tol = w4a16_tolerance(x, wp, ws)
+    ratio = 0.0
+    for bias, act in ((b, "relu"), (None, None)):
+        got = int4_weight_only_matmul(x, wp, ws, bias, act=act)
+        want = int4_weight_only_matmul_reference(x, wp, ws, bias, act=act)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        if not bool((diff <= tol).all()):
+            raise AssertionError(
+                f"int4_weight_only_matmul outside tolerance at {what} act={act}: max "
+                f"{float(diff.max())} (tolerance there {float(tol.flatten()[diff.argmax()])})")
+        ratio = max(ratio, float((diff / tol.clamp_min(1e-30)).max()))
+    return float(diff.max()), ratio
+
+
 def phase_kernels(dev, peaks):
-    """Per (kernel, M, K, N): correctness and times. Returns the rows."""
+    """Per (kernel, M, K, N): correctness, the launcher's variant and times.
+    Returns the rows of the main-path shapes."""
     from brevitas_tpu_torch.kernels import (
         int4_weight_only_matmul,
         int4_weight_only_matmul_reference,
@@ -237,49 +292,54 @@ def phase_kernels(dev, peaks):
         int8_matmul_reference,
         unpack_int4_rows,
     )
+    from brevitas_tpu_torch.kernels.int4 import int4_weight_only_matmul_plan
+    from brevitas_tpu_torch.kernels.int_matmul import int8_matmul_plan
 
     bw, int8_peak, bf16_peak = peaks
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    print("[kernels] kernel M K N | kernel_ms plain_ms library_ms bound_ms "
+    print("[kernels] kernel M K N variant | kernel_ms plain_ms library_ms bound_ms "
           "bound_by | max_abs_err | call_ms (device times; call_ms includes the "
           "host's launch overhead)")
-    shapes = ([(m, k, n) for m in SHAPES_M for k, n in SHAPES_KN]
-              + [(m, k, n) for m in LLAMA_M for k, n in LLAMA_KN]
-              + [(SERVE_DECODE["batch"], k, n) for k, n in SERVE_DECODE_KN])
+    main = ([(m, k, n) for m in SHAPES_M for k, n in SHAPES_KN]
+            + [(m, k, n) for m in LLAMA_M for k, n in LLAMA_KN]
+            + [(SERVE_DECODE["batch"], k, n) for k, n in SERVE_DECODE_KN])
+    edges = {(m, k, n, "int8") for m, k, n in INT8_EDGE_SHAPES} | {
+        (m, k, n, "w4a16") for m, k, n in W4A16_EDGE_SHAPES}
+    shapes = INT8_EDGE_SHAPES + [s for s in W4A16_EDGE_SHAPES if s not in INT8_EDGE_SHAPES] \
+        + main
     for m, k, n in shapes:
-        lfc = m in SHAPES_M and (k, n) in SHAPES_KN
         # int8: the serving path passes a bias and no activation
         x = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
         w = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
         xs = torch.rand((), generator=g, device=dev) * 0.05 + 1e-3
         ws = torch.rand(n, generator=g, device=dev) * 0.05 + 1e-3
         b = torch.randn(n, generator=g, device=dev)
-        for act in (None, "relu"):
-            got = int8_matmul(x, w, xs, ws, b, act=act)
-            want = int8_matmul_reference(x, w, xs, ws, b, act=act)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"int8_matmul differs from its plain version at {(m, k, n)} "
-                    f"act={act}: max {float((got - want).abs().max())}")
-        err = float((got - want).abs().max())
-        t_k = cuda_ms(lambda: int8_matmul(x, w, xs, ws, b))
-        t_call = cuda_ms(lambda: int8_matmul(x, w, xs, ws, b), device_only=False)
-        t_p = cuda_ms(lambda: int8_matmul_reference(x, w, xs, ws, b))
-        if m > 16 and k % 8 == 0 and n % 8 == 0:
-            t_l = cuda_ms(lambda: torch._int_mm(x, w).to(torch.float32) * (xs * ws) + b)
-            lib = f"{t_l:.4f}"
+        plan = int8_matmul_plan(x, w)
+        if (m, k, n, "int8") in edges or (m, k, n) in main:
+            err = check_int8(x, w, xs, ws, b, (m, k, n))
+        if (m, k, n) not in main:
+            if (m, k, n, "int8") in edges:
+                print(f"[kernels] int8_matmul {m} {k} {n} {plan} | edge shape: bit for bit "
+                      "with and without bias and ReLU")
         else:
-            t_l, lib = None, "n/a(_int_mm needs M>16, K%8=0, N%8=0)"
-        nbytes = m * k + k * n + 4 + 8 * n + 4 * m * n
-        t_b, by = bound(nbytes, 2.0 * m * n * k, bw, int8_peak)
-        rows.append(dict(kernel="int8_matmul", m=m, k=k, n=n, ms=t_k, plain_ms=t_p,
-                         library_ms=t_l, bound_ms=t_b, bound_by=by, err=err,
-                         call_ms=t_call))
-        print(f"[kernels] int8_matmul {m} {k} {n} | {t_k:.4f} {t_p:.4f} {lib} "
-              f"{t_b:.3g} {by} | {err} | call {t_call:.4f}")
-        if not lfc:  # only LFC has w4a16 layers
+            t_k = cuda_ms(lambda: int8_matmul(x, w, xs, ws, b))
+            t_call = cuda_ms(lambda: int8_matmul(x, w, xs, ws, b), device_only=False)
+            t_p = cuda_ms(lambda: int8_matmul_reference(x, w, xs, ws, b))
+            if m > 16 and k % 8 == 0 and n % 8 == 0:
+                t_l = cuda_ms(lambda: torch._int_mm(x, w).to(torch.float32) * (xs * ws) + b)
+                lib = f"{t_l:.4f}"
+            else:
+                t_l, lib = None, "n/a(_int_mm needs M>16, K%8=0, N%8=0)"
+            nbytes = m * k + k * n + 4 + 8 * n + 4 * m * n
+            t_b, by = bound(nbytes, 2.0 * m * n * k, bw, int8_peak)
+            rows.append(dict(kernel="int8_matmul", m=m, k=k, n=n, ms=t_k, plain_ms=t_p,
+                             library_ms=t_l, bound_ms=t_b, bound_by=by, err=err,
+                             call_ms=t_call, variant=plan))
+            print(f"[kernels] int8_matmul {m} {k} {n} {plan} | {t_k:.4f} {t_p:.4f} {lib} "
+                  f"{t_b:.3g} {by} | {err} | call {t_call:.4f}")
+        lfc = m in SHAPES_M and (k, n) in SHAPES_KN
+        if not lfc and (m, k, n, "w4a16") not in edges:  # only LFC has w4a16 layers
             continue
 
         # w4a16: LFC's linears have no bias
@@ -287,18 +347,12 @@ def phase_kernels(dev, peaks):
         wp = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev,
                            dtype=torch.int8)
         ws4 = torch.rand(n, generator=g, device=dev) * 0.2 + 0.01
-        tol = w4a16_tolerance(xf, wp, ws4)
-        for bias, act in ((None, None), (b, "relu")):
-            got = int4_weight_only_matmul(xf, wp, ws4, bias, act=act)
-            want = int4_weight_only_matmul_reference(xf, wp, ws4, bias, act=act)
-            torch.cuda.synchronize()
-            if not bool(((got - want).abs() <= tol).all()):
-                raise AssertionError(
-                    f"int4_weight_only_matmul outside tolerance at {(m, k, n)} "
-                    f"act={act}: max {float((got - want).abs().max())}")
-        got = int4_weight_only_matmul(xf, wp, ws4)
-        want = int4_weight_only_matmul_reference(xf, wp, ws4)
-        err = float((got - want).abs().max())
+        plan = int4_weight_only_matmul_plan(xf, wp)
+        err, ratio = check_w4a16(xf, wp, ws4, b, (m, k, n))
+        if not lfc:
+            print(f"[kernels] int4_weight_only_matmul {m} {k} {n} {plan} | edge shape: "
+                  f"within the bound, max |diff| {err:.3g}, {ratio:.3g} of the bound")
+            continue
         w_bf16 = unpack_int4_rows(wp).to(torch.bfloat16)
         t_k = cuda_ms(lambda: int4_weight_only_matmul(xf, wp, ws4))
         t_call = cuda_ms(lambda: int4_weight_only_matmul(xf, wp, ws4),
@@ -310,10 +364,53 @@ def phase_kernels(dev, peaks):
         t_b, by = bound(nbytes, 2.0 * m * n * k, bw, bf16_peak)
         rows.append(dict(kernel="int4_weight_only_matmul", m=m, k=k, n=n, ms=t_k,
                          plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
-                         err=err, call_ms=t_call))
-        print(f"[kernels] int4_weight_only_matmul {m} {k} {n} | {t_k:.4f} "
-              f"{t_p:.4f} {t_l:.4f} {t_b:.3g} {by} | {err:.3g} | call {t_call:.4f}")
+                         err=err, err_of_bound=ratio, call_ms=t_call, variant=plan))
+        print(f"[kernels] int4_weight_only_matmul {m} {k} {n} {plan} | {t_k:.4f} "
+              f"{t_p:.4f} {t_l:.4f} {t_b:.3g} {by} | {err:.3g} ({ratio:.3g} of the bound) "
+              f"| call {t_call:.4f}")
     return rows
+
+
+# int8_matmul's launcher splits K over a cluster when its output tiles fill
+# fewer than half the SMs; these shapes time every split count, forced
+SPLIT_SHAPES = [(16, 1024, 1024), (16, 2752, 1024), (128, 1024, 1024), (1024, 1024, 1024),
+                (4096, 1024, 1024)]
+SPLITS = (1, 2, 4, 8)
+
+
+def phase_int8_crossover(dev) -> dict:
+    """int8_matmul's tiled (1 split) and split-K variants timed against each
+    other at decode, serve, lfc8 and prefill shapes, each held bit for bit;
+    these launches bypass the counted wrapper. Returns ms by shape and split
+    count, and the planned variant."""
+    from brevitas_tpu_torch.kernels.int_matmul import (
+        int8_matmul_plan,
+        int8_matmul_reference,
+        launch_int8_matmul,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for m, k, n in SPLIT_SHAPES:
+        x = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        w = torch.randint(-128, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        xs = torch.rand((), generator=g, device=dev) * 0.05 + 1e-3
+        ws = torch.rand(n, generator=g, device=dev) * 0.05 + 1e-3
+        b = torch.randn(n, generator=g, device=dev)
+        want = int8_matmul_reference(x, w, xs, ws, b)
+        times = {}
+        for splits in SPLITS:
+            got = launch_int8_matmul(x, w, xs, ws, b, splits=splits)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"int8_matmul with {splits} K splits differs from its "
+                                     f"plain version at {(m, k, n)}")
+            times[splits] = cuda_ms(lambda: launch_int8_matmul(x, w, xs, ws, b, splits=splits))
+        plan = int8_matmul_plan(x, w)
+        out[f"{m}x{k}x{n}"] = {"plan": plan, "ms_by_splits": times}
+        print(f"[kernels] int8_matmul {m} {k} {n} forced K splits " + ", ".join(
+            f"{sp}: {t:.4f} ms" for sp, t in times.items()) + f" | planned {plan}")
+    return out
 
 
 # int4_matmul at ragged shapes: K/2 = 3, 392 and 1; N off the 64-column tile
@@ -1808,6 +1905,7 @@ def main() -> int:
     print(f"[kernels] bounds from the {sheet} data sheet: {peaks[0] / 1e12} TB/s, "
           f"{peaks[1] / 1e12} int8 TOP/s, {peaks[2] / 1e12} bf16 TFLOP/s")
     rows = phase_kernels(dev, peaks)
+    crossover = phase_int8_crossover(dev)
     rows += phase_int4_kernel(dev, peaks)
     attn_rows = phase_attention_kernels(dev, peaks)
     lstm_rows = phase_lstm_kernels(dev, VECTOR_PEAKS[sheet], peaks[0])
@@ -1851,7 +1949,7 @@ def main() -> int:
                                 "brevitas_tpu_torch/csrc/int8_matmul.cu",
                                 "brevitas_tpu/kernels/int_matmul.py:90",
                                 "torch._int_mm needs N % 8 == 0; LFC's head has N = 10")
-    int8_entry.update(launches_by_path=int8_by_path,
+    int8_entry.update(launches_by_path=int8_by_path, split_k_crossover=crossover,
                       llama_prefill_forward=llama_gemm_sums(rows, PREFILL_BATCH * PREFILL_T),
                       llama_decode_step=llama_gemm_sums(rows, DECODE_BATCH))
     for r in attn_rows:
@@ -1899,6 +1997,10 @@ def main() -> int:
     for entry in report["kernels"]:
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in PATH_COUNTS.items()}
+        variants = {f"{r['m']}x{r['k']}x{r['n']}": r["variant"] for r in rows
+                    if r["kernel"] == entry["name"] and "variant" in r}
+        if variants:
+            entry["variant_by_mkn"] = variants
     print(f"[done] {report['seconds']:.1f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

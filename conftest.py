@@ -44,7 +44,7 @@ FILE_SECONDS = {
     "tests/test_groupwise.py": 14, "tests/test_core_quant.py": 14,
     "tests/test_a2q.py": 12, "tests/test_torch_port_lfc_qat.py": 12,
     "tests/test_torch_port_serving.py": 12, "tests/test_rotate.py": 11,
-    "tests/test_torch_port_kernels.py": 10, "tests/test_gptq.py": 9,
+    "tests/test_torch_port_kernels.py": 14, "tests/test_gptq.py": 9,
     "tests/test_profiling.py": 5, "tests/test_torch_port_quant.py": 4,
     "tests/test_ops_ste.py": 3, "tests/test_quant_tensor.py": 3,
     "tests/test_native_ste.py": 2, "tests/test_data_loader.py": 2,

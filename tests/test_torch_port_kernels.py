@@ -33,11 +33,17 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 EPILOGUES = [(False, None), (True, None), (False, "relu"), (True, "relu")]
-# every epilogue at LFC's head shape, plus odd M/N and a K off the tile
+# every epilogue at LFC's head shape, plus odd M/N and a K off the tile; the
+# small ragged shapes of chip_smoke.py's kernels phase, which reach the CUDA
+# launchers' masked byte loads (K 100, N 1, 3 and 10) and ragged last tiles
+# in M, N, K and K/2 (M 1 and 37)
 INT8_CASES = ([(16, 784, 10, *e) for e in EPILOGUES]
-              + [(1, 784, 1, True, "relu"), (13, 100, 64, False, None)])
+              + [(1, 784, 1, True, "relu"), (13, 100, 64, False, None),
+                 (5, 100, 3, True, None), (37, 100, 10, False, "relu"),
+                 (1, 100, 1, True, None)])
 W4A16_CASES = ([(16, 784, 10, *e) for e in EPILOGUES]
-               + [(1, 784, 1, True, "relu")])
+               + [(1, 784, 1, True, "relu"), (37, 100, 3, True, "relu"),
+                  (1, 784, 10, False, None)])
 
 
 def _int8_case(rng, m, k, n, with_bias):
