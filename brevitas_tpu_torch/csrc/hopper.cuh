@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core GEMMs
-// (int8_matmul.cu, int4_weight_only_matmul.cu): mbarriers, TMA tile loads,
-// wgmma with the A operand in registers, thread-block-cluster reductions,
-// and the host-side tensor-map encoder. Inline PTX only; no CUTLASS or CuTe.
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
+// TMA tile loads and bulk copies, wgmma with the A operand in registers,
+// signed-nibble unpacking, thread-block-cluster reductions, the integer
+// GEMMs' epilogue, split-K sum and tiling (int8_matmul.cu, int4_matmul.cu),
+// and on the host the tensor-map encoder and a clustered launch. Inline PTX
+// only; no CUTLASS or CuTe.
 //
 // Shared-memory tiles use the 128-byte swizzle that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads with layout type 1: a tile is
@@ -10,6 +12,7 @@
 
 #pragma once
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched from the driver
 #include <cuda_runtime.h>
@@ -75,6 +78,30 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
          "r"(c0), "r"(c1)
       : "memory");
 }
+
+// one contiguous copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) into shared memory, its completion counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+// The four low (or high) nibbles n of a word of packed int4 bytes as
+// unsigned bytes u = n ^ 8 in [0, 15], one lop3: the signed code is u - 8,
+// so a dot product over them is a dp4a of u less 8 x the other operand's sum.
+__device__ __forceinline__ uint32_t nibbles_u_lo(uint32_t b) {
+  return (b & 0x0F0F0F0Fu) ^ 0x08080808u;
+}
+__device__ __forceinline__ uint32_t nibbles_u_hi(uint32_t b) { return nibbles_u_lo(b >> 4); }
+
+// ... and as signed bytes, exactly: (u + 0x78) ^ 0x80 is u - 8 in every
+// byte, and no byte carries into the next (u + 0x78 <= 0x87)
+__device__ __forceinline__ uint32_t s4_lo_to_s8(uint32_t b) {
+  return (nibbles_u_lo(b) + 0x78787878u) ^ 0x80808080u;
+}
+__device__ __forceinline__ uint32_t s4_hi_to_s8(uint32_t b) { return s4_lo_to_s8(b >> 4); }
 
 // four 8 x 8 matrices of 16-bit elements, transposed: lanes 8i..8i+7 give the
 // row addresses of matrix i; lane (g = lane / 4, t = lane % 4) receives
@@ -272,6 +299,12 @@ __device__ __forceinline__ uint4 ld_cluster_v4(uint32_t addr) {
   return v;
 }
 
+__device__ __forceinline__ uint32_t ld_cluster_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
 // Masked byte loads of a 128-byte-swizzled tile by a warpgroup (thread
 // `tid` < 128): tile row r holds src[(row0 + r) * ld + col0 + c] for c < 128,
 // zero outside (rows, cols). For operands whose stride TMA cannot describe.
@@ -291,6 +324,106 @@ __device__ __forceinline__ void load_tile_bytes(uint8_t* tile, const int8_t* src
     }
     *reinterpret_cast<uint4*>(tile + swizzle128(r, c)) = make_uint4(v[0], v[1], v[2], v[3]);
   }
+}
+
+// ---- the integer GEMMs' epilogue (int8_matmul.cu, int4_matmul.cu) ---------
+//
+// Both kernels lay out a CTA alike: 128 features x BT tokens, two consumer
+// warpgroups (threads 0-255) of 64 features and one producer warpgroup. Warp
+// w of warpgroup wg holds features n = n0 + 64 wg + 16 w + 2g (its A row g)
+// and n + 1 (A row g + 8), g = lane / 4, t = lane % 4; its accumulator
+// register D[4j + e] is token 8j + 2t + e of feature n, D[4j + 2 + e] the
+// same token of feature n + 1.
+
+constexpr int kGemmConsumers = 256;
+
+// y[m, n] from its int32 sum, in the reference's order, each step rounded on
+// its own (no FMA): float(acc) * (x_scale * w_scale[n]), then + bias[n],
+// then ReLU
+__device__ __forceinline__ float dequant(int acc, float xsc, float ws, const float* bias, int n,
+                                         int relu) {
+  float v = __fmul_rn(__int2float_rn(acc), __fmul_rn(xsc, ws));
+  if (bias != nullptr) v = __fadd_rn(v, bias[n]);
+  if (relu) v = v > 0.0f ? v : 0.0f;
+  return v;
+}
+
+// y[m, n] and y[m, n + 1], masked at the edges, a float2 store where aligned
+__device__ __forceinline__ void write_pair(float* y, int M, int N, int m, int n, int acc0,
+                                           int acc1, float xsc, const float* w_scale,
+                                           const float* bias, int relu) {
+  if (m >= M || n >= N) return;
+  float* out = y + (size_t)m * N + n;
+  const float o0 = dequant(acc0, xsc, w_scale[n], bias, n, relu);
+  if (n + 1 >= N) {
+    out[0] = o0;
+    return;
+  }
+  const float o1 = dequant(acc1, xsc, w_scale[n + 1], bias, n + 1, relu);
+  if (N % 2 == 0) {
+    *reinterpret_cast<float2*>(out) = make_float2(o0, o1);  // n is even
+  } else {
+    out[0] = o0;
+    out[1] = o1;
+  }
+}
+
+// the tiled epilogue: consumer thread `tid` (< 256) writes its registers
+template <int BT>
+__device__ __forceinline__ void store_tile(const int (&acc)[BT / 2], int tid, float* y, int M,
+                                           int N, int m0, int n0, float xsc,
+                                           const float* w_scale, const float* bias, int relu) {
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = n0 + 64 * wg + 16 * warp + 2 * g;
+#pragma unroll
+  for (int j = 0; j < BT / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      write_pair(y, M, N, m0 + 8 * j + 2 * t + e, n, acc[4 * j + e], acc[4 * j + 2 + e], xsc,
+                 w_scale, bias, relu);
+  }
+}
+
+// The exact int32 split-K sum over a cluster of `splits` CTAs (this one rank
+// `split`), called by all `threads` threads of each CTA once the ring is
+// drained: every rank leaves its partial tile in its own shared memory `red`
+// in fragment order (consumer thread c's registers 4j..4j+3 at quad
+// j * 256 + c); then rank r sums its 1/splits share of the quads over the
+// cluster through distributed shared memory, in rank order, and writes their
+// outputs.
+template <int BT>
+__device__ __forceinline__ void splitk_store(uint8_t* red, const int (&acc)[BT / 2], int threads, int split,
+                             int splits, float* y, int M, int N, int m0, int n0, float xsc,
+                             const float* w_scale, const float* bias, int relu) {
+  if (threadIdx.x < kGemmConsumers) {
+    asm volatile("bar.sync 1, %0;\n" :: "n"(kGemmConsumers) : "memory");
+#pragma unroll
+    for (int i = 0; i < BT / 2; i += 4)
+      *reinterpret_cast<int4*>(red + ((i / 4) * kGemmConsumers + threadIdx.x) * 16) =
+          make_int4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+  }
+  __syncwarp();
+  cluster_sync();
+  const int quads = (BT / 8) * kGemmConsumers, share = (quads + splits - 1) / splits;
+  const int qend = min(quads, (split + 1) * share);
+  for (int q = split * share + threadIdx.x; q < qend; q += threads) {
+    int4 sum = make_int4(0, 0, 0, 0);
+    for (int rank = 0; rank < splits; ++rank) {
+      const uint4 v = ld_cluster_v4(cluster_map(smem_addr(red + q * 16), rank));
+      sum.x += (int)v.x;
+      sum.y += (int)v.y;
+      sum.z += (int)v.z;
+      sum.w += (int)v.w;
+    }
+    const int c = q % kGemmConsumers, j = q / kGemmConsumers, l = c % 32;
+    const int n = n0 + 64 * (c / 128) + 16 * ((c / 32) % 4) + 2 * (l >> 2);
+    const int m = m0 + 8 * j + 2 * (l & 3);
+    write_pair(y, M, N, m, n, sum.x, sum.z, xsc, w_scale, bias, relu);
+    write_pair(y, M, N, m + 1, n, sum.y, sum.w, xsc, w_scale, bias, relu);
+  }
+  __syncwarp();
+  cluster_sync();  // no CTA leaves while another may still read its partials
 }
 
 // the first 1024-byte-aligned address of dynamic shared memory; launches ask
@@ -358,6 +491,54 @@ inline int sm_count() {
       n = 132;
   }
   return n;
+}
+
+// The integer GEMMs' tiling (int8_matmul, int4_matmul): the smallest token
+// tile of {16, 32, 64, 128} that holds M, and, where the 128-feature output
+// tiles fill at most half the SMs, a split of the `ksteps` K stages over a
+// cluster of at most 8 CTAs (1: the tiled variant).
+struct GemmTiles {
+  int bt, splits;
+};
+
+inline GemmTiles gemm_tiles(int M, int N, int ksteps) {
+  GemmTiles t;
+  t.bt = M <= 16 ? 16 : M <= 32 ? 32 : M <= 64 ? 64 : 128;
+  const int tiles = cdiv(N, 128) * cdiv(M, t.bt);
+  t.splits = 1;
+  if (2 * tiles <= sm_count()) {
+    const int s = std::max(1, std::min(std::min(8, ksteps), sm_count() / tiles));
+    t.splits = cdiv(ksteps, cdiv(ksteps, s));  // no split left without K
+  }
+  return t;
+}
+
+// `kernel` on `grid` CTAs of `threads`, with `smem` bytes of dynamic shared
+// memory, in thread-block clusters of `cluster` CTAs where that is more than
+// one; returns a CUDA error code (0 on success)
+template <typename... Params, typename... Args>
+inline int launch_kernel(void (*kernel)(Params...), dim3 grid, int threads, int smem,
+                         dim3 cluster, cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster.x;
+  attr[0].val.clusterDim.y = cluster.y;
+  attr[0].val.clusterDim.z = cluster.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster.x * cluster.y * cluster.z > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace hopper

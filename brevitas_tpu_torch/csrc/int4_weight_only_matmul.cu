@@ -91,13 +91,6 @@ __device__ void repack_w(uint8_t* tile, const uint8_t* raw, int N, int rows, int
   }
 }
 
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");

@@ -62,7 +62,7 @@ using namespace hopper;
 constexpr int kBF = 128;                  // output features per CTA: 2 warpgroups x 64
 constexpr int kBK = 128;                  // K bytes per stage: one swizzled row
 constexpr int kStages = 4;
-constexpr int kConsumers = 256;           // two warpgroups issue wgmma
+constexpr int kConsumers = kGemmConsumers;  // two warpgroups issue wgmma
 constexpr int kThreads = kConsumers + 128;  // and one producer warpgroup
 constexpr int kWTile = kBK * kBF;         // 16 KB: w[k0 + r][n0 + c]
 constexpr int kMaxSplits = 8;             // portable cluster size
@@ -70,36 +70,6 @@ constexpr int kMaxSplits = 8;             // portable cluster size
 template <int BT>
 constexpr int smem_bytes() {
   return kStages * (kWTile + BT * kBK) + 2 * kStages * 8 + 1024;
-}
-
-// y[m, n] and y[m, n + 1] from their int32 sums, in the reference's order,
-// each step rounded on its own (no FMA): float(acc) * (x_scale * w_scale[n]),
-// then + bias[n], then ReLU
-__device__ __forceinline__ float epilogue(int acc, float xsc, float ws, const float* bias, int n,
-                                          int relu) {
-  float v = __fmul_rn(__int2float_rn(acc), __fmul_rn(xsc, ws));
-  if (bias != nullptr) v = __fadd_rn(v, bias[n]);
-  if (relu) v = v > 0.0f ? v : 0.0f;
-  return v;
-}
-
-__device__ __forceinline__ void write_pair(float* y, int M, int N, int m, int n, int acc0,
-                                           int acc1, float xsc, const float* w_scale,
-                                           const float* bias, int relu) {
-  if (m >= M || n >= N) return;
-  float* out = y + (size_t)m * N + n;
-  const float o0 = epilogue(acc0, xsc, w_scale[n], bias, n, relu);
-  if (n + 1 >= N) {
-    out[0] = o0;
-    return;
-  }
-  const float o1 = epilogue(acc1, xsc, w_scale[n + 1], bias, n + 1, relu);
-  if (N % 2 == 0) {
-    *reinterpret_cast<float2*>(out) = make_float2(o0, o1);  // n is even
-  } else {
-    out[0] = o0;
-    out[1] = o1;
-  }
 }
 
 template <int BT>
@@ -197,58 +167,15 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap map_x,
     }
   }
 
-  const bool consumer = wg < 2;
   const float xsc = *x_scale;
   if (splits > 1) {
-    // exact int32 split-K sum: every rank leaves its partial tile in its own
-    // shared memory in fragment order (consumer thread c's registers
-    // 4j..4j+3 at quad j * kConsumers + c); then rank r sums its share of
-    // the quads over the cluster through distributed shared memory and
-    // writes their outputs
-    uint8_t* red = smem;  // the ring is drained: every stage was waited on
-    if (consumer) {
-      asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumers) : "memory");
-#pragma unroll
-      for (int i = 0; i < BT / 2; i += 4)
-        *reinterpret_cast<int4*>(red + ((i / 4) * kConsumers + threadIdx.x) * 16) =
-            make_int4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
-    }
-    __syncwarp();
-    cluster_sync();
-    const int quads = (BT / 8) * kConsumers, share = (quads + splits - 1) / splits;
-    const int qend = min(quads, (split + 1) * share);
-    for (int q = split * share + threadIdx.x; q < qend; q += kThreads) {
-      int4 sum = make_int4(0, 0, 0, 0);
-      for (int rank = 0; rank < splits; ++rank) {
-        const uint4 v = ld_cluster_v4(cluster_map(smem_addr(red + q * 16), rank));
-        sum.x += (int)v.x;
-        sum.y += (int)v.y;
-        sum.z += (int)v.z;
-        sum.w += (int)v.w;
-      }
-      const int c = q % kConsumers, j = q / kConsumers, l = c % 32;
-      const int n = n0 + 64 * (c / 128) + 16 * ((c / 32) % 4) + 2 * (l >> 2);
-      const int m = m0 + 8 * j + 2 * (l & 3);
-      write_pair(y, M, N, m, n, sum.x, sum.z, xsc, w_scale, bias, relu);
-      write_pair(y, M, N, m + 1, n, sum.y, sum.w, xsc, w_scale, bias, relu);
-    }
-    __syncwarp();
-    cluster_sync();  // no CTA leaves while another may still read its partials
+    // the ring is drained (every stage was waited on): its shared memory
+    // holds the partial tiles
+    splitk_store<BT>(smem, acc, kThreads, split, splits, y, M, N, m0, n0, xsc, w_scale, bias,
+                     relu);
     return;
   }
-  if (!consumer) return;
-
-  // epilogue from the registers: D[4j + e] is feature n, token 8j + 2t + e;
-  // D[4j + 2 + e] feature n + 1
-  const int g = lane >> 2, t = lane & 3;
-  const int n = n0 + 64 * wg + 16 * warp + 2 * g;
-#pragma unroll
-  for (int j = 0; j < BT / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      write_pair(y, M, N, m0 + 8 * j + 2 * t + e, n, acc[4 * j + e], acc[4 * j + 2 + e], xsc,
-                 w_scale, bias, relu);
-  }
+  if (wg < 2) store_tile<BT>(acc, threadIdx.x, y, M, N, m0, n0, xsc, w_scale, bias, relu);
 }
 
 struct Plan {
@@ -256,15 +183,10 @@ struct Plan {
 };
 
 Plan plan_for(int M, int N, int K, const void* x, const void* w) {
+  const GemmTiles t = gemm_tiles(M, N, cdiv(K, kBK));
   Plan p;
-  p.bt = M <= 16 ? 16 : M <= 32 ? 32 : M <= 64 ? 64 : 128;
-  const int tiles = cdiv(N, kBF) * cdiv(M, p.bt);
-  const int ksteps = cdiv(K, kBK);
-  p.splits = 1;
-  if (2 * tiles <= sm_count()) {
-    const int s = std::max(1, std::min(std::min(kMaxSplits, ksteps), sm_count() / tiles));
-    p.splits = cdiv(ksteps, cdiv(ksteps, s));  // no split left without K
-  }
+  p.bt = t.bt;
+  p.splits = t.splits;
   p.tma_x = K % 16 == 0 && aligned16(x);
   p.tma_w = N % 16 == 0 && aligned16(w);
   return p;
@@ -279,29 +201,12 @@ int launch(const Plan& p, const void* x, const void* w, const void* x_scale,
     return (int)cudaErrorInvalidValue;
   if (p.tma_w && !tensor_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, N, kBK, kBF))
     return (int)cudaErrorInvalidValue;
-  auto kernel = int8_gemm_kernel<BT>;
-  const int smem = smem_bytes<BT>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cdiv(N, kBF), cdiv(M, BT) * p.splits);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = p.splits;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = p.splits > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kernel, map_x, map_w, static_cast<const int8_t*>(x),
-                           static_cast<const int8_t*>(w), static_cast<const float*>(x_scale),
-                           static_cast<const float*>(w_scale), static_cast<const float*>(bias),
-                           static_cast<float*>(y), M, N, K, relu, p.splits, p.tma_x, p.tma_w);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_kernel(int8_gemm_kernel<BT>, dim3(cdiv(N, kBF), cdiv(M, BT) * p.splits),
+                       kThreads, smem_bytes<BT>(), dim3(1, p.splits, 1), stream, map_x, map_w,
+                       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+                       static_cast<const float*>(x_scale), static_cast<const float*>(w_scale),
+                       static_cast<const float*>(bias), static_cast<float*>(y), M, N, K, relu,
+                       p.splits, p.tma_x, p.tma_w);
 }
 
 }  // namespace

@@ -27,6 +27,15 @@ def bind_plan(library: str, symbol: str):
     return fn
 
 
+def bind_ints(library: str, symbol: str, n_ints: int):
+    """The C function ``symbol`` of ``library`` that takes ``n_ints`` ints
+    and returns an int (a plan code)."""
+    fn = getattr(build.load(library), symbol)
+    fn.argtypes = [ctypes.c_int] * n_ints
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def check_matrix(name: str, t: torch.Tensor, dtype: torch.dtype,
                  device: torch.device) -> None:
     if t.dtype != dtype or t.ndim != 2:

@@ -5,9 +5,11 @@ unpack, ``int4_matmul`` and ``int4_weight_only_matmul``).
 Packing layout (``pack_int4_rows``): byte row j of the (K/2, N) packed array
 holds weight row j in its LOW nibble and weight row j + K/2 in its HIGH
 nibble. On a CUDA tensor ``int4_matmul`` and ``int4_weight_only_matmul``
-launch the hand-written Hopper kernels ``csrc/int4_matmul.cu`` and
-``csrc/int4_weight_only_matmul.cu`` (bf16 ``wgmma`` on the tensor cores);
-on a CPU tensor they take the plain versions.
+launch the hand-written Hopper kernels ``csrc/int4_matmul.cu`` (s8
+``wgmma``, nibbles sign-extended in registers; a tiled or a cluster split-K
+variant, :func:`int4_matmul_plan`) and ``csrc/int4_weight_only_matmul.cu``
+(bf16 ``wgmma``; :func:`int4_weight_only_matmul_plan`); on a CPU tensor they
+take the plain versions.
 """
 
 import functools
@@ -57,6 +59,31 @@ def _w4a8_launcher():
     return _launch.bind("int4_matmul", "int4_matmul_launch", 6, 4)
 
 
+@functools.lru_cache(maxsize=None)
+def _w4a8_splits_launcher():
+    return _launch.bind("int4_matmul", "int4_matmul_launch_splits", 6, 5)
+
+
+@functools.lru_cache(maxsize=None)
+def _w4a8_planner():
+    return _launch.bind_plan("int4_matmul", "int4_matmul_plan")
+
+
+def int4_matmul_plan(x_i8: torch.Tensor, w_packed: torch.Tensor) -> str:
+    """The variant the CUDA launcher takes for these operands, e.g.
+    ``"tiled BT128 x:tma w:tma"`` or ``"splitk4 BT16 x:tma w:tma"``: tokens
+    per tile, K split over a cluster of CTAs or not, and each operand loaded
+    by TMA or by the producer's masked byte loads (where TMA cannot take the
+    stride or the tile origin: N % 16 != 0, or K/2 % 16 != 0)."""
+    k2, n = w_packed.shape
+    code = _w4a8_planner()(x_i8.shape[0], n, k2, x_i8.data_ptr(), w_packed.data_ptr())
+    splits = (code >> 8) & 0xFF
+    kind = "tiled" if splits == 1 else f"splitk{splits}"
+    load = {0: "bytes", 1: "tma"}
+    return (f"{kind} BT{code & 0xFF} x:{load[(code >> 16) & 1]} "
+            f"w:{load[(code >> 17) & 1]}")
+
+
 def int4_matmul(x_i8: torch.Tensor, w_packed: torch.Tensor, x_scale, w_scale,
                 bias: Optional[torch.Tensor] = None,
                 act: Optional[str] = None) -> torch.Tensor:
@@ -65,6 +92,20 @@ def int4_matmul(x_i8: torch.Tensor, w_packed: torch.Tensor, x_scale, w_scale,
     or (N,), bias None or (N,), act None or "relu". Returns (M, N) float32."""
     if x_i8.device.type == "cpu":
         return int4_matmul_reference(x_i8, w_packed, x_scale, w_scale, bias, act)
+    y = launch_int4_matmul(x_i8, w_packed, x_scale, w_scale, bias, act)
+    int4_matmul.launches += 1
+    return y
+
+
+int4_matmul.launches = 0
+
+
+def launch_int4_matmul(x_i8: torch.Tensor, w_packed: torch.Tensor, x_scale, w_scale,
+                       bias: Optional[torch.Tensor] = None, act: Optional[str] = None,
+                       splits: int = 0) -> torch.Tensor:
+    """The CUDA launch behind :func:`int4_matmul`, uncounted; ``splits``
+    forces that many K splits (1 = the tiled variant, 0 = the launcher's
+    plan). For measuring the variants against each other."""
     if x_i8.device.type != "cuda":
         raise ValueError(f"int4_matmul runs on cuda or cpu, not {x_i8.device}")
     device = x_i8.device
@@ -81,15 +122,14 @@ def int4_matmul(x_i8: torch.Tensor, w_packed: torch.Tensor, x_scale, w_scale,
     ws = _launch.f32_vector("w_scale", w_scale, n, device, broadcast=True)
     b = None if bias is None else _launch.f32_vector("bias", bias, n, device)
     y = torch.empty((m, n), dtype=torch.float32, device=device)
-    _launch.launch(_w4a8_launcher(), "int4_matmul", device,
-                   x_i8.data_ptr(), w_packed.data_ptr(), xs.data_ptr(), ws.data_ptr(),
-                   None if b is None else b.data_ptr(), y.data_ptr(),
-                   m, n, k2, relu)
-    int4_matmul.launches += 1
+    args = (x_i8.data_ptr(), w_packed.data_ptr(), xs.data_ptr(), ws.data_ptr(),
+            None if b is None else b.data_ptr(), y.data_ptr(), m, n, k2, relu)
+    name = f"int4_matmul at (M, K, N) = ({m}, {k}, {n})"
+    if splits:
+        _launch.launch(_w4a8_splits_launcher(), name, device, *args, splits)
+    else:
+        _launch.launch(_w4a8_launcher(), name, device, *args)
     return y
-
-
-int4_matmul.launches = 0
 
 
 def int4_weight_only_matmul_reference(x: torch.Tensor, w_packed: torch.Tensor,

@@ -12,7 +12,10 @@ With symmetric int8 Q/K/V codes and a frozen unsigned probability grid
 ``int8_attention`` (prefill) and ``int4kv_decode_attention`` (one decode
 step against a cache packed two positions per byte) launch hand-written
 Hopper kernels (``csrc/int8_attention.cu``, ``csrc/int4kv_decode_attention.cu``)
-on CUDA tensors and take their plain versions on CPU tensors.
+on CUDA tensors and take their plain versions on CPU tensors. The decode
+kernel reads each valid packed row once and splits long caches over a
+thread-block cluster; :func:`int4kv_decode_attention_plan` names the variant
+its launcher takes.
 ``int8_decode_attention`` (one decode step against an int8 cache) has no
 TPU kernel and is plain PyTorch everywhere.
 
@@ -243,7 +246,60 @@ def int4kv_decode_attention_reference(q_i8, k_packed, v_packed, pos: int, q_scal
 @functools.lru_cache(maxsize=None)
 def _decode_launcher():
     return _launch.bind("int4kv_decode_attention", "int4kv_decode_attention_launch",
-                        6, 6)
+                        7, 6)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_splits_launcher():
+    return _launch.bind("int4kv_decode_attention",
+                        "int4kv_decode_attention_launch_splits", 7, 7)
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_planner():
+    return _launch.bind_ints("int4kv_decode_attention", "int4kv_decode_attention_plan", 6)
+
+
+def _decode_plan_code(bh: int, l_half: int, d: int, kv_groups: int, pos: int,
+                      splits: int = 0) -> int:
+    code = _decode_planner()(bh, l_half, d, kv_groups, min(pos, 2 * l_half - 1), splits)
+    if code < 0:
+        raise ValueError(f"int4kv_decode_attention takes no launch at (BH, l_half, D, "
+                         f"kv_groups, pos) = ({bh}, {l_half}, {d}, {kv_groups}, {pos})")
+    return code
+
+
+def int4kv_decode_attention_plan(q_i8, k_packed, pos: int, kv_groups: int = 1,
+                                 splits: int = 0) -> str:
+    """The variant the CUDA launcher takes for one decode step, e.g.
+    ``"rows1 splits1 T128 tile64 scores:smem"``: query rows a CTA (the
+    query heads that share a KV head), CTAs of a cluster that split the
+    valid rows (``splits`` forces them), threads a CTA, packed rows a tile,
+    and where the scores are kept (shared memory, or a scratch buffer for
+    very long caches)."""
+    bh, _, d = q_i8.shape
+    code = _decode_plan_code(bh, k_packed.shape[1], d, kv_groups, pos, splits)
+    return (f"rows{code & 0xFF} splits{(code >> 8) & 0xFF} "
+            f"T{256 if (code >> 17) & 1 else 128} tile{code >> 18} "
+            f"scores:{'scratch' if (code >> 16) & 1 else 'smem'}")
+
+
+@functools.lru_cache(maxsize=None)
+def _needs_scratch(bh: int, l_half: int, d: int, kv_groups: int) -> bool:
+    # whether the scores may go to scratch at any position and any split: the
+    # shared-memory layout grows with the rows a CTA takes and the rows of
+    # its chunk, and one rank over the whole cache at the last position
+    # holds the most of both (the planned variant itself is not monotone in
+    # the position: it may take fewer query rows a CTA at a longer cache)
+    return bool((_decode_plan_code(bh, l_half, d, kv_groups, 2 * l_half - 1, 1) >> 16) & 1)
+
+
+def int4kv_decode_scales(q_scale, k_scale, v_scale, p_scale, head_dim: int,
+                         device) -> torch.Tensor:
+    """(qk_scale, p_scale, v_scale), the (3,) float32 tensor on ``device``
+    that the decode kernel reads; qk_scale in the JAX package's order."""
+    return _scales(qk_scale_of(q_scale, k_scale, head_dim, device), p_scale, v_scale,
+                   device)
 
 
 def int4kv_decode_attention(q_i8, k_packed, v_packed, pos: int, q_scale, k_scale,
@@ -260,10 +316,35 @@ def int4kv_decode_attention(q_i8, k_packed, v_packed, pos: int, q_scale, k_scale
             head_dim, p_levels, kv_groups, return_codes)
     if q_i8.device.type != "cuda":
         raise ValueError(f"int4kv_decode_attention runs on cuda or cpu, not {q_i8.device}")
+    scales = int4kv_decode_scales(q_scale, k_scale, v_scale, p_scale, head_dim, q_i8.device)
+    result = launch_int4kv_decode_attention(q_i8, k_packed, v_packed, pos, scales, p_levels,
+                                            kv_groups, return_codes)
+    if q_i8.numel() and k_packed.shape[1]:
+        int4kv_decode_attention.launches += 1
+    return result
+
+
+int4kv_decode_attention.launches = 0
+
+
+def launch_int4kv_decode_attention(q_i8, k_packed, v_packed, pos: int,
+                                   scales: torch.Tensor, p_levels: int = 255,
+                                   kv_groups: int = 1, return_codes: bool = False,
+                                   splits: int = 0):
+    """The CUDA launch behind :func:`int4kv_decode_attention`, uncounted, on
+    ``scales`` from :func:`int4kv_decode_scales`; ``splits`` forces that
+    many CTAs a cluster (0 = the launcher's plan). Only the kernel runs on
+    the card, so it also times the kernel alone."""
+    if q_i8.device.type != "cuda":
+        raise ValueError(f"int4kv_decode_attention runs on cuda or cpu, not {q_i8.device}")
     device = q_i8.device
     for name, t in (("q_i8", q_i8), ("k_packed", k_packed), ("v_packed", v_packed)):
         _check_codes(name, t, device)
     _check_shapes(q_i8, k_packed, v_packed, kv_groups, p_levels)
+    if (scales.dtype != torch.float32 or scales.shape != (3,) or scales.device != device
+            or not scales.is_contiguous()):
+        raise ValueError("scales must be the contiguous (3,) float32 tensor of "
+                         f"int4kv_decode_scales on {device}")
     bh, tq, d = q_i8.shape
     l_half = k_packed.shape[1]
     if tq != 1:
@@ -276,15 +357,17 @@ def int4kv_decode_attention(q_i8, k_packed, v_packed, pos: int, q_scale, k_scale
     codes = (torch.zeros((bh, 1, 2 * l_half), dtype=torch.uint8, device=device)
              if return_codes else None)
     if out.numel() and l_half:
-        scales = _scales(qk_scale_of(q_scale, k_scale, head_dim, device), p_scale,
-                         v_scale, device)
-        _launch.launch(_decode_launcher(), "int4kv_decode_attention", device,
-                       q_i8.data_ptr(), k_packed.data_ptr(), v_packed.data_ptr(),
-                       scales.data_ptr(), out.data_ptr(),
-                       None if codes is None else codes.data_ptr(),
-                       bh, l_half, d, kv_groups, min(pos, 2 * l_half - 1), p_levels)
-        int4kv_decode_attention.launches += 1
+        scratch = (torch.empty((bh, 2 * l_half), dtype=torch.float32, device=device)
+                   if _needs_scratch(bh, l_half, d, kv_groups) else None)
+        args = (q_i8.data_ptr(), k_packed.data_ptr(), v_packed.data_ptr(),
+                scales.data_ptr(), out.data_ptr(),
+                None if codes is None else codes.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                bh, l_half, d, kv_groups, min(pos, 2 * l_half - 1), p_levels)
+        name = (f"int4kv_decode_attention at (BH, l_half, D, pos) = "
+                f"({bh}, {l_half}, {d}, {pos})")
+        if splits:
+            _launch.launch(_decode_splits_launcher(), name, device, *args, splits)
+        else:
+            _launch.launch(_decode_launcher(), name, device, *args)
     return (out, codes) if return_codes else out
-
-
-int4kv_decode_attention.launches = 0

@@ -22,11 +22,20 @@ Phases; any failure exits non-zero and prints no result:
              |w_scale| (its largest share of that bound printed). Each shape
              prints the variant its launcher took. Median times (CUDA
              events) of the kernel, the plain version and one library call,
-             beside the least time the card could take; int8_matmul also at
-             every forced K-split count (tiled against split-K).
+             beside the least time the card could take; int8_matmul and
+             int4_matmul also at every forced K-split count (tiled against
+             split-K). int4_matmul first runs structural probes: one-hot x
+             against packed weights holding a K index in one nibble half and
+             an N index in the other, so a wrong fragment or nibble mapping
+             names the first output it breaks.
 4. attn    - int8_attention at (BH, T, D) = (128, 512, 64) causal and a ragged
              grouped-query shape; int4kv_decode_attention at (BH, l_half, D) =
-             (256, 512, 64) with pos in {63, 0, 511, 1023}. Held to the plain
+             (256, 512, 64) with pos in {63, 0, 511, 1023}, and at a ragged
+             grouped-query shape (6, 77, 40), 2 groups, on both sides of
+             l_half, each printing its launcher's variant; at every forced
+             cluster size at pos 63, 511 and 1023; and, checked only, at
+             (2, 262144, 8), whose chunks go in tiles, over a cluster, with
+             their scores in a scratch buffer, and at D 33. Held to the plain
              versions code by code: probability codes differ by at most one,
              in at most 1e-4 of them; the output is exactly the PV product of
              the kernel's own codes, and within (row flips) * 128 * p_scale *
@@ -413,21 +422,67 @@ def phase_int8_crossover(dev) -> dict:
     return out
 
 
-# int4_matmul at ragged shapes: K/2 = 3, 392 and 1; N off the 64-column tile
-INT4_EDGE_SHAPES = [(1, 6, 10), (37, 784, 1024), (5, 2, 3)]
+# int4_matmul at ragged shapes that reach every load path of its launcher:
+# K/2 = 3, 392, 1 and 393 (odd: x by byte loads), N 10, 3 and 1000 (w by byte
+# loads), ragged last tiles in M, N and K/2; each also forced tiled
+INT4_EDGE_SHAPES = [(1, 6, 10), (37, 784, 1024), (5, 2, 3), (37, 786, 1024), (200, 2752, 1000)]
+# one-hot probes: a K index in one nibble half, an N index in the other
+INT4_PROBE_SHAPES = [(128, 512, 256), (16, 1024, 128)]
+# every forced split count at the decode, edge and prefill shapes
+INT4_SPLIT_SHAPES = [(16, 1024, 1024), (16, 2752, 1024), (37, 786, 1024), (200, 2752, 1000),
+                     (4096, 1024, 1024)]
+
+
+def int4_probe(dev, m, k, n):
+    """Structural probes of int4_matmul: row r of x is one-hot at K index k_r,
+    scales are 1 and there is no bias, so y[r, c] is exactly w[k_r, c]. The
+    packed weights hold (index >> shift) % 16 - 8 of their packed row j in one
+    nibble half and of their column c in the other, for shifts 0 and 4, both
+    ways round: a wrong fragment, nibble or token mapping names the first
+    output it breaks."""
+    from brevitas_tpu_torch.kernels import int4_matmul, int4_matmul_reference
+
+    k2 = k // 2
+    rows = torch.arange(m, device=dev)
+    k_of = (rows * (k // m) + rows % 7) % k  # every residue of a 32-row slab
+    x = torch.zeros((m, k), dtype=torch.int8, device=dev)
+    x[rows, k_of] = 1
+    j = torch.arange(k2, device=dev).reshape(-1, 1).expand(k2, n)
+    c = torch.arange(n, device=dev).reshape(1, -1).expand(k2, n)
+    one, ones = torch.ones((), device=dev), torch.ones(n, device=dev)
+    for shift in (0, 4):
+        for lo, hi, what in ((j, c, "K index low, N index high"),
+                             (c, j, "N index low, K index high")):
+            wp = (((lo >> shift) & 15) | (((hi >> shift) & 15) << 4)).to(torch.int32)
+            wp = torch.where(wp >= 128, wp - 256, wp).to(torch.int8).contiguous()
+            got = int4_matmul(x, wp, one, ones)
+            want = int4_matmul_reference(x, wp, one, ones)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = (got != want).nonzero()[0].tolist()
+                raise AssertionError(
+                    f"int4_matmul probe {(m, k, n)} ({what}, shift {shift}): y{tuple(bad)} = "
+                    f"{float(got[bad[0], bad[1]])}, want {float(want[bad[0], bad[1]])} "
+                    f"(x one-hot at K {int(k_of[bad[0]])})")
+    print(f"[kernels] int4_matmul probe {m} {k} {n}: one-hot x, K and N indices in the "
+          "nibbles, bit for bit")
 
 
 def phase_int4_kernel(dev, peaks):
-    """int4_matmul (W4A8) at the Llama shapes and ragged ones, with and
-    without bias, with ReLU, per-channel and scalar weight scales: bit for
-    bit against its plain version, and timed. Returns the rows."""
+    """int4_matmul (W4A8): structural probes; then the Llama shapes and ragged
+    ones, with and without bias, with ReLU, per-channel and scalar weight
+    scales, bit for bit against its plain version (the ragged ones also
+    forced tiled); the variant each shape takes; times. Returns the rows."""
     from brevitas_tpu_torch.kernels import int4_matmul, int4_matmul_reference, unpack_int4_rows
+    from brevitas_tpu_torch.kernels.int4 import int4_matmul_plan, launch_int4_matmul
 
     bw, int8_peak, _ = peaks
+    for m, k, n in INT4_PROBE_SHAPES:
+        int4_probe(dev, m, k, n)
     g = torch.Generator(device=dev).manual_seed(2)
     rows = []
-    print("[kernels] int4_matmul M K N | kernel_ms plain_ms library_ms(torch._int_mm on "
-          "unpacked 8-bit weights, not the same function) bound_ms bound_by | max_abs_err "
+    print("[kernels] int4_matmul M K N variant | kernel_ms plain_ms library_ms(torch._int_mm "
+          "on unpacked 8-bit weights, not the same function) bound_ms bound_by | max_abs_err "
           "| call_ms")
     shapes = INT4_EDGE_SHAPES + [(m, k, n) for m in LLAMA_M for k, n in LLAMA_KN]
     for m, k, n in shapes:
@@ -436,6 +491,7 @@ def phase_int4_kernel(dev, peaks):
         xs = torch.rand((), generator=g, device=dev) * 0.05 + 1e-3
         ws = torch.rand(n, generator=g, device=dev) * 0.05 + 1e-3
         b = torch.randn(n, generator=g, device=dev)
+        plan = int4_matmul_plan(x, wp)
         err = 0.0
         for w_scale, bias, act in ((ws, b, None), (ws, None, None), (ws, b, "relu"),
                                    (xs * 2, None, "relu"), (xs * 2, b, None)):
@@ -445,8 +501,16 @@ def phase_int4_kernel(dev, peaks):
             err = max(err, float((got - want).abs().max()))
             if not torch.equal(got, want):
                 raise AssertionError(
-                    f"int4_matmul differs from its plain version at {(m, k, n)} act={act} "
-                    f"bias={bias is not None} per-channel={w_scale is ws}: max {err}")
+                    f"int4_matmul differs from its plain version at {(m, k, n)} {plan} "
+                    f"act={act} bias={bias is not None} per-channel={w_scale is ws}: max {err}")
+        if (m, k, n) in INT4_EDGE_SHAPES:
+            got = launch_int4_matmul(x, wp, xs, ws, b, splits=1)
+            torch.cuda.synchronize()
+            if not torch.equal(got, int4_matmul_reference(x, wp, xs, ws, b)):
+                raise AssertionError(f"int4_matmul forced tiled differs at {(m, k, n)}")
+            print(f"[kernels] int4_matmul {m} {k} {n} {plan} | edge shape: bit for bit with "
+                  "and without bias and ReLU, per-channel and scalar scales, and forced tiled")
+            continue
         # the serving path passes a bias (the zero-point fold) and no activation
         t_k = cuda_ms(lambda: int4_matmul(x, wp, xs, ws, b))
         t_call = cuda_ms(lambda: int4_matmul(x, wp, xs, ws, b), device_only=False)
@@ -460,10 +524,43 @@ def phase_int4_kernel(dev, peaks):
         nbytes = m * k + (k // 2) * n + 4 + 8 * n + 4 * m * n
         t_b, by = bound(nbytes, 2.0 * m * n * k, bw, int8_peak)
         rows.append(dict(kernel="int4_matmul", m=m, k=k, n=n, ms=t_k, plain_ms=t_p,
-                         library_ms=t_l, bound_ms=t_b, bound_by=by, err=err, call_ms=t_call))
-        print(f"[kernels] int4_matmul {m} {k} {n} | {t_k:.4f} {t_p:.4f} {lib} {t_b:.3g} "
-              f"{by} | {err} | call {t_call:.4f}")
+                         library_ms=t_l, bound_ms=t_b, bound_by=by, err=err, call_ms=t_call,
+                         variant=plan))
+        print(f"[kernels] int4_matmul {m} {k} {n} {plan} | {t_k:.4f} {t_p:.4f} {lib} "
+              f"{t_b:.3g} {by} | {err} | call {t_call:.4f}")
     return rows
+
+
+def phase_int4_crossover(dev) -> dict:
+    """int4_matmul's tiled (1 split) and split-K variants timed against each
+    other at decode, edge and prefill shapes, each held bit for bit; these
+    launches bypass the counted wrapper. Returns ms by shape and split count,
+    and the planned variant."""
+    from brevitas_tpu_torch.kernels import int4_matmul_reference
+    from brevitas_tpu_torch.kernels.int4 import int4_matmul_plan, launch_int4_matmul
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    for m, k, n in INT4_SPLIT_SHAPES:
+        x = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        wp = torch.randint(-128, 128, (k // 2, n), generator=g, device=dev, dtype=torch.int8)
+        xs = torch.rand((), generator=g, device=dev) * 0.05 + 1e-3
+        ws = torch.rand(n, generator=g, device=dev) * 0.05 + 1e-3
+        b = torch.randn(n, generator=g, device=dev)
+        want = int4_matmul_reference(x, wp, xs, ws, b)
+        times = {}
+        for splits in SPLITS:
+            got = launch_int4_matmul(x, wp, xs, ws, b, splits=splits)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"int4_matmul with {splits} K splits differs from its "
+                                     f"plain version at {(m, k, n)}")
+            times[splits] = cuda_ms(lambda: launch_int4_matmul(x, wp, xs, ws, b, splits=splits))
+        plan = int4_matmul_plan(x, wp)
+        out[f"{m}x{k}x{n}"] = {"plan": plan, "ms_by_splits": times}
+        print(f"[kernels] int4_matmul {m} {k} {n} forced K splits " + ", ".join(
+            f"{sp}: {t:.4f} ms" for sp, t in times.items()) + f" | planned {plan}")
+    return out
 
 
 # the repo's Llama configuration (bench.py's llama legs): about 80 M
@@ -483,6 +580,24 @@ LLAMA_M = [PREFILL_BATCH * PREFILL_T, DECODE_BATCH]
 ATTN_SHAPES = [(128, 512, 512, 64, True, 1), (6, 77, 45, 40, True, 2)]
 DECODE_SHAPE = (256, 512, 64)
 DECODE_POS = [63, 0, 511, 1023]
+# a ragged grouped-query decode shape (BH, l_half, D, kv_groups) at positions
+# on both sides of l_half: its last low-nibble row, its first high one, the last
+DECODE_RAGGED = (6, 77, 40, 2)
+DECODE_RAGGED_POS = [0, 40, 76, 77, 153]
+DECODE_SPLIT_POS = [63, 511, 1023]  # every forced cluster size at these positions
+# and at a few heads over a long cache (BH, l_half, D): one sequence of 16
+# heads at up to 32k positions
+DECODE_FEW_HEADS = (16, 16384, 64)
+DECODE_FEW_HEADS_POS = [127, 1023, 8191, 32767]
+# decode shapes held to the plain version but not timed, (BH, l_half, D,
+# kv_groups) at these positions: a cache long enough that a rank's chunk goes
+# in several tiles and its scores to the scratch buffer, over a full cluster;
+# 8 query heads a KV head over a cache where the planned rows a CTA drop
+# from 8 to 1 near the end, so the scores go to scratch at mid positions
+# only; and a head dim off the 4-byte word (byte loads)
+DECODE_CHECKS = [((2, 262144, 8, 1), [262149, 524287]),
+                 ((64, 80000, 64, 8), [40000, 159999]),
+                 ((4, 37, 33, 2), [5, 36, 37, 73])]
 FLIP_SHARE = 1e-4   # codes may differ by one in at most this share of probabilities
 
 
@@ -519,12 +634,20 @@ def phase_attention_kernels(dev, peaks):
         int8_attention_reference,
         unpack_kv_halves,
     )
+    from brevitas_tpu_torch.kernels.int8_attention import (
+        _decode_plan_code,
+        _needs_scratch,
+        int4kv_decode_attention_plan,
+        int4kv_decode_scales,
+        launch_int4kv_decode_attention,
+    )
 
     bw, int8_peak, _ = peaks
     g = torch.Generator(device=dev).manual_seed(1)
     rows = []
     print("[attn] kernel shape | kernel_ms plain_ms library_ms(bf16 SDPA, not the same "
-          "function) bound_ms bound_by | code flips, max_abs_err")
+          "function) bound_ms bound_by | code flips, max_abs_err (decode: kernel_ms the "
+          "counted call's device time, scale arithmetic included)")
     for bh, tq, tk, d, causal, groups in ATTN_SHAPES:
         q = torch.randint(-127, 128, (bh, tq, d), generator=g, device=dev, dtype=torch.int8)
         k = torch.randint(-127, 128, (bh // groups, tk, d), generator=g, device=dev,
@@ -558,38 +681,130 @@ def phase_attention_kernels(dev, peaks):
               f"{t_k:.4f} {t_p:.4f} {t_l:.4f} {t_b:.4g} {by} | {flips} of "
               f"{got_codes.numel()}, {err:.3g}")
 
-    bh, l_half, d = DECODE_SHAPE
-    q = torch.randint(-127, 128, (bh, 1, d), generator=g, device=dev, dtype=torch.int8)
-    kp = torch.randint(-128, 128, (bh, l_half, d), generator=g, device=dev, dtype=torch.int8)
-    vp = torch.randint(-128, 128, (bh, l_half, d), generator=g, device=dev, dtype=torch.int8)
-    # q codes ~ 73 and nibbles ~ 4.6 in standard deviation: scores of deviation ~3
-    q_s, k_s = torch.tensor(0.01, device=dev), torch.tensor(3.0 / (73 * 4.6 * 0.01), device=dev)
+    q_s = torch.tensor(0.01, device=dev)
     ps, vs = torch.tensor(0.25 / 255, device=dev), torch.tensor(0.1, device=dev)
-    k_full, v_full = unpack_kv_halves(kp), unpack_kv_halves(vp)
-    for pos in DECODE_POS:
-        args = (pos, q_s, k_s, vs, ps, d)
-        got, got_codes = int4kv_decode_attention(q, kp, vp, *args, return_codes=True)
-        want, want_codes = int4kv_decode_attention_reference(q, kp, vp, *args,
-                                                             return_codes=True)
-        torch.cuda.synchronize()
-        what = f"int4kv_decode_attention {(bh, l_half, d)} pos={pos}"
-        flips, err = check_codes(got, got_codes, want, want_codes, v_full, ps * vs, what)
-        t_k = cuda_ms(lambda: int4kv_decode_attention(q, kp, vp, *args))
-        t_p = cuda_ms(lambda: int4kv_decode_attention_reference(q, kp, vp, *args))
-        qb = q.to(torch.bfloat16)[None]
-        kb = k_full[None, :, :pos + 1].to(torch.bfloat16)
-        vb = v_full[None, :, :pos + 1].to(torch.bfloat16)
-        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb))
-        n_rows = min(l_half, pos + 1)
-        nbytes = bh * d + 2 * bh * n_rows * d + 4 * bh * d + 12
-        t_b, by = bound(nbytes, 4.0 * bh * (pos + 1) * d, bw, int8_peak)
-        rows.append(dict(kernel="int4kv_decode_attention", shape=(bh, l_half, d), pos=pos,
-                         ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
-                         err=err, flips=flips))
-        print(f"[attn] int4kv_decode_attention {(bh, l_half, d)} pos={pos} | {t_k:.4f} "
-              f"{t_p:.4f} {t_l:.4f} {t_b:.4g} {by} | {flips} of {got_codes.numel()}, "
-              f"{err:.3g}")
+    for (bh, l_half, d), groups, positions in ((DECODE_SHAPE, 1, DECODE_POS),
+                                               (DECODE_RAGGED[:3], DECODE_RAGGED[3],
+                                                DECODE_RAGGED_POS)):
+        q = torch.randint(-127, 128, (bh, 1, d), generator=g, device=dev, dtype=torch.int8)
+        kp, vp = (torch.randint(-128, 128, (bh // groups, l_half, d), generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        # q codes ~ 73 and nibbles ~ 4.6 in standard deviation: scores of deviation ~3
+        k_s = torch.tensor(3.0 / (73 * 4.6 * 0.01 * (d / 64) ** 0.5), device=dev)
+        k_full, v_full = (unpack_kv_halves(t).repeat_interleave(groups, 0) for t in (kp, vp))
+        for pos in positions:
+            args = (pos, q_s, k_s, vs, ps, d)
+            kw = dict(kv_groups=groups)
+            plan = int4kv_decode_attention_plan(q, kp, pos, groups)
+            got, got_codes = int4kv_decode_attention(q, kp, vp, *args, return_codes=True, **kw)
+            want, want_codes = int4kv_decode_attention_reference(q, kp, vp, *args,
+                                                                 return_codes=True, **kw)
+            torch.cuda.synchronize()
+            what = f"int4kv_decode_attention {(bh, l_half, d)} groups={groups} pos={pos}"
+            flips, err = check_codes(got, got_codes, want, want_codes, v_full, ps * vs, what)
+            # the counted call's device time, as every kernel row is timed:
+            # the wrapper's scale arithmetic (three small torch kernels) and
+            # the kernel; then the kernel alone, on scales made once
+            t_call = cuda_ms(lambda: int4kv_decode_attention(q, kp, vp, *args, **kw))
+            sc = int4kv_decode_scales(q_s, k_s, vs, ps, d, dev)
+            t_k = cuda_ms(lambda: launch_int4kv_decode_attention(q, kp, vp, pos, sc, **kw))
+            t_p = cuda_ms(lambda: int4kv_decode_attention_reference(q, kp, vp, *args, **kw))
+            qb = q.to(torch.bfloat16)[None]
+            kb = k_full[None, :, :pos + 1].to(torch.bfloat16)
+            vb = v_full[None, :, :pos + 1].to(torch.bfloat16)
+            t_l = cuda_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb))
+            n_rows = min(l_half, pos + 1)
+            nbytes = bh * d + 2 * (bh // groups) * n_rows * d + 4 * bh * d + 12
+            t_b, by = bound(nbytes, 4.0 * bh * (pos + 1) * d, bw, int8_peak)
+            rows.append(dict(kernel="int4kv_decode_attention", shape=(bh, l_half, d),
+                             groups=groups, pos=pos, ms=t_call, kernel_only_ms=t_k,
+                             plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
+                             err=err, flips=flips, variant=plan))
+            print(f"[attn] int4kv_decode_attention {(bh, l_half, d)} groups={groups} "
+                  f"pos={pos} {plan} | {t_call:.4f} (kernel alone {t_k:.4f}) {t_p:.4f} "
+                  f"{t_l:.4f} {t_b:.4g} {by} | {flips} of {got_codes.numel()}, {err:.3g}")
+        if groups == 1:
+            rows[-1]["split_crossover"] = {
+                "x".join(map(str, DECODE_SHAPE)): decode_crossover(
+                    q, kp, vp, q_s, k_s, vs, ps, v_full, DECODE_SPLIT_POS)}
+
+    # few heads over a long cache: the CTAs leave most SMs idle, the case the
+    # launcher's cluster split is for
+    bh, l_half, d = DECODE_FEW_HEADS
+    q = torch.randint(-127, 128, (bh, 1, d), generator=g, device=dev, dtype=torch.int8)
+    kp, vp = (torch.randint(-128, 128, (bh, l_half, d), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    k_s = torch.tensor(3.0 / (73 * 4.6 * 0.01 * (d / 64) ** 0.5), device=dev)
+    next(r for r in rows if "split_crossover" in r)["split_crossover"][
+        "x".join(map(str, DECODE_FEW_HEADS))] = decode_crossover(
+            q, kp, vp, q_s, k_s, vs, ps, unpack_kv_halves(vp), DECODE_FEW_HEADS_POS)
+
+    for (bh, l_half, d, groups), positions in DECODE_CHECKS:
+        q = torch.randint(-127, 128, (bh, 1, d), generator=g, device=dev, dtype=torch.int8)
+        kp, vp = (torch.randint(-128, 128, (bh // groups, l_half, d), generator=g, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        # scores of deviation ~9: over 2^19 positions some codes stay above 0
+        k_s = torch.tensor(9.0 / (73 * 4.6 * 0.01 * (d / 64) ** 0.5), device=dev)
+        v_full = unpack_kv_halves(vp).repeat_interleave(groups, 0)
+        # the wrapper allocates the scratch buffer once for the shape: every
+        # position whose plan keeps the scores there must find it
+        spill = [p for p in range(2 * l_half)
+                 if _decode_plan_code(bh, l_half, d, groups, p) >> 16 & 1]
+        if spill and not _needs_scratch(bh, l_half, d, groups):
+            raise AssertionError(f"int4kv_decode_attention {(bh, l_half, d)} groups={groups}: "
+                                 f"{len(spill)} positions plan scratch, the wrapper has none")
+        print(f"[attn] int4kv_decode_attention {(bh, l_half, d)} groups={groups}: "
+              f"{len(spill)} of {2 * l_half} positions keep the scores in scratch"
+              + (f" (first {spill[0]}, last {spill[-1]})" if spill else ""))
+        for pos in positions:
+            args = (pos, q_s, k_s, vs, ps, d)
+            plan = int4kv_decode_attention_plan(q, kp, pos, groups)
+            got, got_codes = int4kv_decode_attention(q, kp, vp, *args, return_codes=True,
+                                                     kv_groups=groups)
+            want, want_codes = int4kv_decode_attention_reference(
+                q, kp, vp, *args, return_codes=True, kv_groups=groups)
+            torch.cuda.synchronize()
+            what = f"int4kv_decode_attention {(bh, l_half, d)} groups={groups} pos={pos}"
+            flips, err = check_codes(got, got_codes, want, want_codes, v_full, ps * vs, what)
+            print(f"[attn] {what} {plan} | checked, not timed: {flips} of "
+                  f"{got_codes.numel()} codes differ, max |diff| {err:.3g}")
     return rows
+
+
+def decode_crossover(q, kp, vp, q_s, k_s, vs, ps, v_full, positions) -> dict:
+    """int4kv_decode_attention at every forced cluster size at ``positions``,
+    each held to the plain version by check_codes and timed alone on scales
+    made once (the splits differ only in the kernel); these launches bypass
+    the counted wrapper. Returns the kernel's ms by position and split."""
+    from brevitas_tpu_torch.kernels import int4kv_decode_attention_reference
+    from brevitas_tpu_torch.kernels.int8_attention import (
+        int4kv_decode_attention_plan,
+        int4kv_decode_scales,
+        launch_int4kv_decode_attention,
+    )
+
+    d = q.shape[-1]
+    sc = int4kv_decode_scales(q_s, k_s, vs, ps, d, q.device)
+    out = {}
+    for pos in positions:
+        want, want_codes = int4kv_decode_attention_reference(q, kp, vp, pos, q_s, k_s, vs, ps,
+                                                             d, return_codes=True)
+        times = {}
+        for splits in SPLITS:
+            got, got_codes = launch_int4kv_decode_attention(q, kp, vp, pos, sc,
+                                                            return_codes=True, splits=splits)
+            torch.cuda.synchronize()
+            check_codes(got, got_codes, want, want_codes, v_full, ps * vs,
+                        f"int4kv_decode_attention pos={pos} with {splits} forced splits")
+            times[splits] = cuda_ms(
+                lambda: launch_int4kv_decode_attention(q, kp, vp, pos, sc, splits=splits))
+        plan = int4kv_decode_attention_plan(q, kp, pos)
+        out[str(pos)] = {"plan": plan, "ms_by_splits": times}
+        print(f"[attn] int4kv_decode_attention {tuple(kp.shape)} pos={pos} forced splits, "
+              "the kernel alone: "
+              + ", ".join(f"{sp}: {t:.4f} ms" for sp, t in times.items())
+              + f" | planned {plan}")
+    return out
 
 
 def _to_cpu(x):
@@ -1907,6 +2122,7 @@ def main() -> int:
     rows = phase_kernels(dev, peaks)
     crossover = phase_int8_crossover(dev)
     rows += phase_int4_kernel(dev, peaks)
+    int4_crossover = phase_int4_crossover(dev)
     attn_rows = phase_attention_kernels(dev, peaks)
     lstm_rows = phase_lstm_kernels(dev, VECTOR_PEAKS[sheet], peaks[0])
     fq_rows = phase_fake_quant_kernels(dev, peaks[0])
@@ -1944,6 +2160,7 @@ def main() -> int:
         "launches_by_path": int4_by_path,
         "llama_prefill_forward": llama_gemm_sums(rows, PREFILL_BATCH * PREFILL_T,
                                                  "int4_matmul"),
+        "split_k_crossover": int4_crossover,
     }
     int8_entry = kernel_summary(rows, "int8_matmul", SERVE_BATCH, sum(int8_by_path.values()),
                                 "brevitas_tpu_torch/csrc/int8_matmul.cu",
@@ -1955,6 +2172,24 @@ def main() -> int:
     for r in attn_rows:
         r["flips_total"] = sum(x["flips"] for x in attn_rows if x["kernel"] == r["kernel"])
         r["max_err"] = max(x["err"] for x in attn_rows if x["kernel"] == r["kernel"])
+    decode_entry = attention_summary(
+        next(r for r in attn_rows if r.get("pos") == DECODE_STEPS - 1),
+        "int4kv_decode_attention",
+        decode["int4kv"]["launches"]["int4kv_decode_attention"]
+        + serve_decode["serve_decode_kv4"]["launches"]["int4kv_decode_attention"],
+        "brevitas_tpu_torch/csrc/int4kv_decode_attention.cu",
+        "brevitas_tpu/kernels/int8_attention.py:324")
+    decode_entry["by_shape_pos"] = [
+        {k: r[k] for k in ("shape", "groups", "pos", "variant", "ms", "kernel_only_ms",
+                           "plain_ms", "bound_ms", "flips")}
+        for r in attn_rows if r["kernel"] == "int4kv_decode_attention"]
+    decode_entry["split_crossover"] = next(r["split_crossover"] for r in attn_rows
+                                           if "split_crossover" in r)
+    decode_entry["ms_note"] = ("the counted call's device time, the wrapper's scale "
+                               "arithmetic included; kernel_only_ms is the kernel alone, on "
+                               "scales made once")
+    decode_entry["kernel_only_ms"] = next(r["kernel_only_ms"] for r in attn_rows
+                                          if r.get("pos") == DECODE_STEPS - 1)
     report = {"kernels": [
         int8_entry,
         int4_entry,
@@ -1967,13 +2202,7 @@ def main() -> int:
                           + w4a8_prefill["launches"]["int8_attention"],
                           "brevitas_tpu_torch/csrc/int8_attention.cu",
                           "brevitas_tpu/kernels/int8_attention.py:98"),
-        attention_summary(next(r for r in attn_rows if r.get("pos") == DECODE_STEPS - 1),
-                          "int4kv_decode_attention",
-                          decode["int4kv"]["launches"]["int4kv_decode_attention"]
-                          + serve_decode["serve_decode_kv4"]["launches"][
-                              "int4kv_decode_attention"],
-                          "brevitas_tpu_torch/csrc/int4kv_decode_attention.cu",
-                          "brevitas_tpu/kernels/int8_attention.py:324"),
+        decode_entry,
         lstm_summary(lstm_rows, "quant_lstm_cell", lstm, "brevitas_tpu/kernels/lstm_cell.py:176"),
         lstm_summary(lstm_rows, "quant_lstm_cell_backward", lstm,
                      "brevitas_tpu/kernels/lstm_cell.py:224"),

@@ -38,7 +38,7 @@ FILE_SECONDS = {
     "tests/test_torch_port_w4a8.py": 31, "tests/test_float_quant.py": 26,
     "tests/test_quantizers.py": 25, "tests/test_mixed_precision.py": 24,
     "tests/test_torch_port_transformer.py": 23,
-    "tests/test_torch_port_attention.py": 23, "tests/test_torch_import.py": 19,
+    "tests/test_torch_port_attention.py": 30, "tests/test_torch_import.py": 19,
     "tests/test_torch_port_llama.py": 18, "tests/test_learned_round.py": 17,
     "tests/test_torch_port_lstm.py": 16, "tests/test_onnx_validate.py": 14,
     "tests/test_groupwise.py": 14, "tests/test_core_quant.py": 14,

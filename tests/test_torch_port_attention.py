@@ -177,6 +177,34 @@ def test_int4kv_decode_matches_jax(decode_case, pos):
                               head_dim=d).numpy(), port)
 
 
+# (BH, l_half, D, kv_groups): the head dims the decode kernel sizes its lanes
+# by (40: ragged 4-byte words; 128: eight lanes a row) and grouped-query heads,
+# at positions in the low half, at its last row, at the first high-half
+# position and at the last one
+DECODE_SHAPES = [(2, 24, 40, 1), (4, 24, 128, 2), (6, 13, 40, 3)]
+
+
+@pytest.mark.parametrize("bh,l_half,d,groups", DECODE_SHAPES)
+def test_int4kv_decode_head_dims_and_groups_match_jax(bh, l_half, d, groups):
+    """The port takes the packed cache at its KV heads; the JAX package has
+    no kv_groups here, so it gets the cache repeated per group."""
+    rng = np.random.default_rng(11)
+    q = _codes(rng, (bh, 1, d))
+    kp = rng.integers(-128, 128, (bh // groups, l_half, d)).astype(np.int8)
+    vp = rng.integers(-128, 128, (bh // groups, l_half, d)).astype(np.int8)
+    # scores of deviation ~3, as in decode_case
+    scales = (np.float32(0.01), np.float32(3.0 / (73 * 4.6 * 0.01 * (d / 64) ** 0.5)),
+              np.float32(0.1), P_SCALE)
+    jk, jv = (jnp.asarray(np.repeat(a, groups, axis=0)) for a in (kp, vp))
+    for pos in (l_half // 2, l_half - 1, l_half, 2 * l_half - 1):
+        port = int4kv_decode_attention(_t(q), _t(kp), _t(vp), pos, *map(_t, scales),
+                                       head_dim=d, kv_groups=groups).numpy()
+        plain = np.asarray(jax_attn.int4kv_decode_attention(
+            jnp.asarray(q), jk, jv, pos, *map(jnp.float32, scales), head_dim=d,
+            use_pallas=False))
+        np.testing.assert_array_equal(port, plain, err_msg=f"pos {pos}")
+
+
 def test_int8_decode_attention_gqa_matches_jax(rng):
     b, h, kvh, length, d = 2, 4, 2, 20, 16
     q = _codes(rng, (b * h, 1, d))

@@ -83,6 +83,11 @@ INT4_CASES = [
     (5, 1026, 100, False, None, False),
     (37, 6, 1, True, None, True),
     (1, 1026, 70, True, "relu", True),
+    # chip_smoke.py's ragged int4 shapes: x by byte loads (K/2 392 and 393
+    # off a 16-byte boundary), w by byte loads (N 1000), split-K
+    (37, 784, 1024, True, None, True),
+    (37, 786, 1024, False, "relu", False),
+    (200, 2752, 1000, True, "relu", True),
 ]
 
 
