@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA tile loads and bulk copies, wgmma with the A operand in registers,
-// signed-nibble unpacking, thread-block-cluster reductions, the integer
-// GEMMs' epilogue, split-K sum and tiling (int8_matmul.cu, int4_matmul.cu),
-// and on the host the tensor-map encoder and a clustered launch. Inline PTX
-// only; no CUTLASS or CuTe.
+// signed-nibble unpacking, 4 x 4 byte transposes, thread-block-cluster
+// reductions, the integer GEMMs' epilogue, split-K sum and tiling
+// (int8_matmul.cu, int4_matmul.cu), and on the host the tensor-map encoder
+// and a clustered launch. Inline PTX only; no CUTLASS or CuTe.
 //
 // Shared-memory tiles use the 128-byte swizzle that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B and wgmma reads with layout type 1: a tile is
@@ -102,6 +102,17 @@ __device__ __forceinline__ uint32_t s4_lo_to_s8(uint32_t b) {
   return (nibbles_u_lo(b) + 0x78787878u) ^ 0x80808080u;
 }
 __device__ __forceinline__ uint32_t s4_hi_to_s8(uint32_t b) { return s4_lo_to_s8(b >> 4); }
+
+// The 4 x 4 byte block whose row i is the word r[i] (byte c = column c),
+// transposed by byte permutes: col[c] holds column c, its byte i from row i.
+__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&col)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
+  col[0] = __byte_perm(t0, t2, 0x5410);
+  col[1] = __byte_perm(t0, t2, 0x7632);
+  col[2] = __byte_perm(t1, t3, 0x5410);
+  col[3] = __byte_perm(t1, t3, 0x7632);
+}
 
 // four 8 x 8 matrices of 16-bit elements, transposed: lanes 8i..8i+7 give the
 // row addresses of matrix i; lane (g = lane / 4, t = lane % 4) receives
@@ -217,6 +228,28 @@ template <> __device__ __forceinline__ void wgmma_s8<128>(int* d, const uint32_t
         "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
         "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x BT, s32) += A (64 x 32 u8, registers) * B (32 x BT s8, K-major
+// shared memory): the fragments as wgmma_s8's, A's bytes unsigned.
+template <int BT>
+__device__ __forceinline__ void wgmma_u8s8(int* d, const uint32_t* a, uint64_t desc_b, int accumulate);
+
+template <> __device__ __forceinline__ void wgmma_u8s8<64>(int* d, const uint32_t* a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 

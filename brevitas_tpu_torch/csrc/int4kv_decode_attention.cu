@@ -417,14 +417,12 @@ int4kv_decode_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ kp
     if (active) {
       for (int qd = gg; 4 * qd < rows_t; qd += G) {
         const uint8_t* v0 = vbuf + voff + 4 * qd * D + 4 * wv;
-        const uint32_t a0 = load_word(v0, words_ok, D - 4 * wv);
-        const uint32_t a1 = load_word(v0 + D, words_ok, D - 4 * wv);
-        const uint32_t a2 = load_word(v0 + 2 * D, words_ok, D - 4 * wv);
-        const uint32_t a3 = load_word(v0 + 3 * D, words_ok, D - 4 * wv);
-        const uint32_t t0 = __byte_perm(a0, a1, 0x5140), t1 = __byte_perm(a0, a1, 0x7362);
-        const uint32_t t2 = __byte_perm(a2, a3, 0x5140), t3 = __byte_perm(a2, a3, 0x7362);
-        const uint32_t col[4] = {__byte_perm(t0, t2, 0x5410), __byte_perm(t0, t2, 0x7632),
-                                 __byte_perm(t1, t3, 0x5410), __byte_perm(t1, t3, 0x7632)};
+        const uint32_t rows4[4] = {load_word(v0, words_ok, D - 4 * wv),
+                                   load_word(v0 + D, words_ok, D - 4 * wv),
+                                   load_word(v0 + 2 * D, words_ok, D - 4 * wv),
+                                   load_word(v0 + 3 * D, words_ok, D - 4 * wv)};
+        uint32_t col[4];
+        transpose4x4(rows4, col);
         const int rel = r_lo - c0 + 4 * qd;  // the quad's first row in the chunk
 #pragma unroll
         for (int i = 0; i < R; ++i) {

@@ -22,38 +22,72 @@
 // with it bit for bit on the card. The library is built without
 // --use_fast_math.
 //
+// The scales sa and ss come with strides (gate, column): (H, 1) one per
+// column, (1, 0) one per gate block, (0, 0) one broadcast value. QuantLSTM
+// passes its per-tensor gate quantizers' scales as they are, so no call
+// copies an expanded scale and no autograd sum folds a (4H,) gradient back.
+//
 // The backward recomputes the forward from gates and c and applies the
 // straight-through estimator of rint with the zeroing clamp, per stage
 //     dx = g * in_range,   ds += g * (q - in_range * x / s).
-// The scale gradients are sums over the batch (sa, ss: one per column) and
-// over the whole (B, H) step (st, sc, sth, sh). They are summed without
-// atomics, in a fixed order, in float64: each thread sums its rows, the
-// block sums its row lanes and (scalars) its columns into float64 partials,
-// one row of partials per block of rows; a second kernel adds the partials
-// in block order and rounds once. Two runs give the same bits.
+// It is one launch. The eleven scale-gradient terms (dsa's four gates,
+// dss's three, dst, dsc, dsth, dsh) are summed without atomics on values,
+// in float64, in a fixed order, and each rounded once to float32; two runs
+// give the same bits. The order:
+//   1. a thread sums its rows in order (rows r 64 + lane of its column);
+//   2. the block sums its 64 row lanes per column: each run of 8 lanes in
+//      order, then the 8 runs in order. A per-column scale's gradient is
+//      written here;
+//   3. every other term (the four scalars, and sa or ss where their column
+//      stride is 0) is summed over the block's 4 columns by a fixed shuffle
+//      tree into a float64 partial per column block; a __threadfence() and
+//      an atomic ticket (taken as a grid barrier takes it: one thread after
+//      the block's barrier) pick the last column block, which adds each
+//      term's partials (lane l of a warp those of blocks l, l + 32, .. in
+//      order, then a shuffle tree over the lanes), writes the sums (a
+//      broadcast sa or ss adds its gate sums in gate order) and resets the
+//      ticket. The
+//      order does not depend on which block arrives last. The ticket and the
+//      partials live in a scratch buffer that the wrapper makes once per
+//      device, so no call launches a memset; calls on one device are ordered
+//      by their stream.
 //
 // What bounds it on the H100: bytes. The forward reads gates and c and
 // writes h and c' (28 bytes a (b, j) element: 0.92 MB at the QuantLSTM QAT
 // leg's B 64, H 512, 0.27 us at 3.35 TB/s); the backward reads gates, c, dh
-// and dc' and writes dgates and dc (48 bytes an element, 1.6 MB). The
-// arithmetic is a few float64 exp and tanh an element. At the leg's size a
-// launch costs more than either, and the step is a Python loop of GEMM,
-// cell and glue per time step (host-bound). The simple design: one thread
-// per (b, j), reading the four gate columns j, H + j, 2H + j, 3H + j, each
-// coalesced across a warp's consecutive j. Any B and H (the TPU kernel's
-// H % 128, B % 8 gate was a Pallas tiling rule).
+// and dc' and writes dgates and dc (48 bytes an element, 1.6 MB, 0.48 us).
+// The arithmetic is a few float64 exp and tanh an element. At the leg's
+// size a launch costs more than either, and so does one thread's dependent
+// chain (the forward recomputed, then the backward). The forward: one
+// thread per (b, j), reading the four gate columns j, H + j, 2H + j, 3H + j,
+// each coalesced across a warp's consecutive j. The backward: a CTA of 4
+// columns x 64 row lanes (256 threads), one row a thread up to B 64 (the
+// leg's (64, 512) runs 128 CTAs on 132 SMs), ceil(B / 64) rows a thread
+// past it. The column sums stay inside the CTA: with a cluster of CTAs
+// along the rows, its two barriers and rank-order sum in distributed shared
+// memory took 2.2 of 8.5 us on an H100 (PERF.md). Any B and H (the TPU
+// kernel's H % 128, B % 8 gate was a Pallas tiling rule).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
+
 constexpr int kThreads = 256;     // forward: threads per block
-constexpr int kCols = 32;         // backward: columns j per block (one warp)
-constexpr int kLanes = 8;         // backward: row lanes per block
-constexpr int kRowsPerLane = 2;   // backward: rows per thread
-constexpr int kRowsPerBlock = kLanes * kRowsPerLane;
+constexpr int kCols = 4;          // backward: columns j per block
+constexpr int kLanes = 64;        // backward: row lanes per block
+constexpr int kSegs = 8;          // backward: segments of 8 row lanes
+constexpr int kBwdThreads = kCols * kLanes;
 constexpr int kSums = 11;         // dsa (4), dss (3), dst, dsc, dsth, dsh
+
+// strides of sa and ss: element (gate k, column j) at k * gate + j * col
+struct Strides {
+  int sa_gate, sa_col, ss_gate, ss_col;
+};
 
 struct Bounds {
   float lo[6], hi[6];  // acc, sigmoid, tanh_g, cell, tanh_h, hidden
@@ -124,16 +158,17 @@ __device__ __forceinline__ void cell_forward(const float gate[4], float c, const
   z.h = fake_quant(z.hp, sh, bd.lo[kHidden], bd.hi[kHidden]);
 }
 
-__device__ __forceinline__ void load_element(const float* __restrict__ gates,
-                                             const float* __restrict__ sa,
-                                             const float* __restrict__ ss, int b, int j, int H,
-                                             float gate[4], float sa4[4], float ss3[3]) {
+__device__ __forceinline__ void load_scales(const float* __restrict__ sa,
+                                            const float* __restrict__ ss, int j,
+                                            const Strides& str, float sa4[4], float ss3[3]) {
+  for (int k = 0; k < 4; ++k) sa4[k] = __ldg(sa + k * str.sa_gate + j * str.sa_col);
+  for (int k = 0; k < 3; ++k) ss3[k] = __ldg(ss + k * str.ss_gate + j * str.ss_col);
+}
+
+__device__ __forceinline__ void load_gates(const float* __restrict__ gates, int b, int j, int H,
+                                           float gate[4]) {
   const float* row = gates + static_cast<int64_t>(b) * 4 * H;
-  for (int k = 0; k < 4; ++k) {
-    gate[k] = row[k * H + j];
-    sa4[k] = __ldg(sa + k * H + j);
-  }
-  for (int k = 0; k < 3; ++k) ss3[k] = __ldg(ss + k * H + j);
+  for (int k = 0; k < 4; ++k) gate[k] = row[k * H + j];
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -142,45 +177,53 @@ quant_lstm_cell_kernel(const float* __restrict__ gates, const float* __restrict_
                        const float* __restrict__ st, const float* __restrict__ sc,
                        const float* __restrict__ sth, const float* __restrict__ sh,
                        float* __restrict__ h, float* __restrict__ c_new, int B, int H,
-                       Bounds bd) {
+                       Strides str, Bounds bd) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= static_cast<int64_t>(B) * H) return;
   const int b = static_cast<int>(i / H), j = static_cast<int>(i % H);
   float gate[4], sa4[4], ss3[3];
-  load_element(gates, sa, ss, b, j, H, gate, sa4, ss3);
+  load_gates(gates, b, j, H, gate);
+  load_scales(sa, ss, j, str, sa4, ss3);
   Cell z;
   cell_forward(gate, c[i], sa4, ss3, __ldg(st), __ldg(sc), __ldg(sth), __ldg(sh), bd, z);
   h[i] = z.h.y;
   c_new[i] = z.cn.y;
 }
 
-// Backward, first pass: the per-element gradients, and float64 partial sums
-// of the scale gradients for this block's kRowsPerBlock rows: one row of
-// col_part (7H columns: dsa then dss) per blockIdx.y, one row of 4 scalar
-// partials per block.
-__global__ void __launch_bounds__(kCols * kLanes)
+// Backward, in one launch (the order of the sums is the note's): one CTA
+// of 4 columns x 64 row lanes per column block; thread (tx, ty) takes
+// column j = 4 blockIdx.x + tx and rows r 64 + ty, r < rows. `part` holds
+// kSums float64 partials per column block; `ticket` counts the column
+// blocks that have written theirs (0 between launches).
+__global__ void __launch_bounds__(kBwdThreads)
 quant_lstm_cell_backward_kernel(const float* __restrict__ gates, const float* __restrict__ c,
                                 const float* __restrict__ sa, const float* __restrict__ ss,
                                 const float* __restrict__ st, const float* __restrict__ sc,
                                 const float* __restrict__ sth, const float* __restrict__ sh,
                                 const float* __restrict__ dh, const float* __restrict__ dcn,
                                 float* __restrict__ dgates, float* __restrict__ dc,
-                                double* __restrict__ col_part, double* __restrict__ scalar_part,
-                                int B, int H, Bounds bd) {
-  __shared__ double red[kSums][kLanes][kCols];
-  const int tx = threadIdx.x, ty = threadIdx.y;
+                                float* __restrict__ dsa, float* __restrict__ dss,
+                                float* __restrict__ dscalars, double* __restrict__ part,
+                                unsigned* __restrict__ ticket, int B, int H, int rows,
+                                Strides str, Bounds bd) {
+  __shared__ double red[kSums][kLanes][kCols];  // 22 KB
+  __shared__ double total[kSums];
+  __shared__ bool last;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kCols + tx;
   const int j = blockIdx.x * kCols + tx;
   const float s_t = __ldg(st), s_c = __ldg(sc), s_th = __ldg(sth), s_h = __ldg(sh);
   double acc[kSums];
   for (int k = 0; k < kSums; ++k) acc[k] = 0.0;
 
   if (j < H) {
-    for (int r = 0; r < kRowsPerLane; ++r) {
-      const int b = blockIdx.y * kRowsPerBlock + r * kLanes + ty;
+    float sa4[4], ss3[3];
+    load_scales(sa, ss, j, str, sa4, ss3);
+    for (int r = 0; r < rows; ++r) {
+      const int b = r * kLanes + ty;
       if (b >= B) break;
       const int64_t e = static_cast<int64_t>(b) * H + j;
-      float gate[4], sa4[4], ss3[3];
-      load_element(gates, sa, ss, b, j, H, gate, sa4, ss3);
+      float gate[4];
+      load_gates(gates, b, j, H, gate);
       const float c_old = c[e];
       Cell z;
       cell_forward(gate, c_old, sa4, ss3, s_t, s_c, s_th, s_h, bd, z);
@@ -223,50 +266,103 @@ quant_lstm_cell_backward_kernel(const float* __restrict__ gates, const float* __
     }
   }
 
+  // 2. the row lanes: each segment of 8 lanes in order, then the segments
+  // in order (segment sums kept in red[k][seg])
   for (int k = 0; k < kSums; ++k) red[k][ty][tx] = acc[k];
   __syncthreads();
-  if (ty != 0) return;
-  // warp 0: each lane sums its column over the row lanes, in lane order
-  double tot[kSums];
-  for (int k = 0; k < kSums; ++k) {
-    double t = 0.0;
-    for (int l = 0; l < kLanes; ++l) t += red[k][l][tx];
-    tot[k] = t;
-  }
-  if (j < H) {
-    double* row = col_part + static_cast<int64_t>(blockIdx.y) * 7 * H;
-    for (int k = 0; k < 4; ++k) row[k * H + j] = tot[k];
-    for (int k = 0; k < 3; ++k) row[(4 + k) * H + j] = tot[4 + k];
-  }
-  // the four scalar sums over the block's columns: a fixed shuffle tree
-  for (int k = 7; k < kSums; ++k) {
-    double t = tot[k];
-    for (int off = kCols / 2; off > 0; off /= 2) t += __shfl_down_sync(0xffffffffu, t, off);
-    if (tx == 0)
-      scalar_part[(static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x) * 4 + (k - 7)] = t;
-  }
-}
-
-// Backward, second pass: add the partials in block order, round once.
-__global__ void __launch_bounds__(kThreads)
-quant_lstm_cell_reduce_kernel(const double* __restrict__ col_part,
-                              const double* __restrict__ scalar_part, float* __restrict__ dsa,
-                              float* __restrict__ dss, float* __restrict__ dscalars,
-                              int H, int row_blocks, int n_blocks) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i < 7 * H) {
-    double t = 0.0;
-    for (int y = 0; y < row_blocks; ++y) t += col_part[static_cast<int64_t>(y) * 7 * H + i];
-    if (i < 4 * H) {
-      dsa[i] = __double2float_rn(t);
-    } else {
-      dss[i - 4 * H] = __double2float_rn(t);
+  constexpr int kItems = kSums * kSegs * kCols;  // (term, segment, column)
+  double seg_sum[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int p = tid + kBwdThreads * i;
+    seg_sum[i] = 0.0;
+    if (p < kItems) {
+      const int k = p / (kSegs * kCols), seg = (p / kCols) % kSegs, col = p % kCols;
+#pragma unroll
+      for (int l = 0; l < 8; ++l) seg_sum[i] += red[k][8 * seg + l][col];
     }
-  } else if (i < 7 * H + 4) {
-    const int k = i - 7 * H;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int p = tid + kBwdThreads * i;
+    if (p < kItems) red[p / (kSegs * kCols)][(p / kCols) % kSegs][p % kCols] = seg_sum[i];
+  }
+  __syncthreads();
+  // 3. thread (term k, column) = tid (kCols k + column): the column's
+  // total; a per-column scale's gradient is written here, every other term
+  // is summed over the block's columns by a shuffle tree into its partial
+  if (tid < 32 * ((kSums * kCols + 31) / 32)) {  // whole warps; lanes past the terms carry zeros
+    const int k = tid / kCols, col = tid % kCols, jj = blockIdx.x * kCols + col;
     double t = 0.0;
-    for (int blk = 0; blk < n_blocks; ++blk) t += scalar_part[static_cast<int64_t>(blk) * 4 + k];
-    dscalars[k] = __double2float_rn(t);
+    if (k < kSums)
+      for (int seg = 0; seg < kSegs; ++seg) t += red[k][seg][col];
+    const bool per_col = k < 4 ? str.sa_col != 0 : k < 7 ? str.ss_col != 0 : false;
+    if (k < kSums && per_col && jj < H) {
+      if (k < 4) dsa[k * H + jj] = __double2float_rn(t);
+      else dss[(k - 4) * H + jj] = __double2float_rn(t);
+    }
+    for (int off = kCols / 2; off > 0; off /= 2) t += __shfl_down_sync(0xffffffffu, t, off);
+    if (col == 0 && k < kSums && !per_col) part[static_cast<int64_t>(blockIdx.x) * kSums + k] = t;
+  }
+  // the ticket, as a grid barrier takes it: after the block's barrier one
+  // thread fences (the partials are visible before the ticket counts them)
+  // and, in the last block, fences again before the block reads the others'
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  // 4. the last block: warp w adds the partials of terms w, w + 8, .., lane
+  // l those of blocks l, l + 32, .. in order (every load of a round in
+  // flight at once), then a shuffle tree over the lanes
+  constexpr int kWarps = kBwdThreads / 32, kTermsPerWarp = (kSums + kWarps - 1) / kWarps;
+  const int lane = tid % 32, warp = tid / 32;
+  double t[kTermsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kTermsPerWarp; ++i) t[i] = 0.0;
+  for (unsigned x0 = lane; x0 < gridDim.x; x0 += 32 * 4) {
+    double v[kTermsPerWarp][4];
+#pragma unroll
+    for (int i = 0; i < kTermsPerWarp; ++i)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int k = warp + kWarps * i;
+        const unsigned x = x0 + 32 * u;
+        v[i][u] = k < kSums && x < gridDim.x
+                      ? __ldcg(part + static_cast<int64_t>(x) * kSums + k) : 0.0;
+      }
+#pragma unroll
+    for (int i = 0; i < kTermsPerWarp; ++i)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) t[i] += v[i][u];
+  }
+#pragma unroll
+  for (int i = 0; i < kTermsPerWarp; ++i) {
+    for (int off = 16; off > 0; off /= 2) t[i] += __shfl_down_sync(0xffffffffu, t[i], off);
+    if (lane == 0 && warp + kWarps * i < kSums) total[warp + kWarps * i] = t[i];
+  }
+  __syncthreads();
+  if (tid == 0) {
+    if (str.sa_col == 0) {
+      if (str.sa_gate == 0) {
+        dsa[0] = __double2float_rn(((total[0] + total[1]) + total[2]) + total[3]);
+      } else {
+        for (int k = 0; k < 4; ++k) dsa[k] = __double2float_rn(total[k]);
+      }
+    }
+    if (str.ss_col == 0) {
+      if (str.ss_gate == 0) {
+        dss[0] = __double2float_rn((total[4] + total[5]) + total[6]);
+      } else {
+        for (int k = 0; k < 3; ++k) dss[k] = __double2float_rn(total[4 + k]);
+      }
+    }
+    for (int k = 0; k < 4; ++k) dscalars[k] = __double2float_rn(total[7 + k]);
+    *ticket = 0u;  // for the next launch, ordered after this one by the stream
   }
 }
 
@@ -284,38 +380,36 @@ Bounds make_bounds(const int lohi[12]) {
 extern "C" int quant_lstm_cell_launch(const float* gates, const float* c, const float* sa,
                                       const float* ss, const float* st, const float* sc,
                                       const float* sth, const float* sh, float* h,
-                                      float* c_new, int B, int H, int alo, int ahi, int slo,
+                                      float* c_new, int B, int H, int sa_gate, int sa_col,
+                                      int ss_gate, int ss_col, int alo, int ahi, int slo,
                                       int shi, int tlo, int thi, int clo, int chi, int thlo,
                                       int thhi, int hlo, int hhi, cudaStream_t stream) {
   const int lohi[12] = {alo, ahi, slo, shi, tlo, thi, clo, chi, thlo, thhi, hlo, hhi};
   const int64_t n = static_cast<int64_t>(B) * H;
   if (n == 0) return 0;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  const Strides str = {sa_gate, sa_col, ss_gate, ss_col};
   quant_lstm_cell_kernel<<<blocks, kThreads, 0, stream>>>(gates, c, sa, ss, st, sc, sth, sh, h,
-                                                          c_new, B, H, make_bounds(lohi));
+                                                          c_new, B, H, str, make_bounds(lohi));
   return static_cast<int>(cudaGetLastError());
 }
+
+// The backward's tiling: rows a thread (64 row lanes a block). The wrapper
+// sizes `part` from the column blocks, ceil(H / 4).
+extern "C" int quant_lstm_cell_backward_plan(int B) { return std::max(1, cdiv(B, kLanes)); }
 
 extern "C" int quant_lstm_cell_backward_launch(
     const float* gates, const float* c, const float* sa, const float* ss, const float* st,
     const float* sc, const float* sth, const float* sh, const float* dh, const float* dcn,
-    float* dgates, float* dc, float* dsa, float* dss, float* dscalars, double* col_part,
-    double* scalar_part, int B, int H, int alo, int ahi, int slo, int shi, int tlo, int thi,
-    int clo, int chi, int thlo, int thhi, int hlo, int hhi, cudaStream_t stream) {
+    float* dgates, float* dc, float* dsa, float* dss, float* dscalars, double* part,
+    unsigned* ticket, int B, int H, int sa_gate, int sa_col, int ss_gate, int ss_col, int alo,
+    int ahi, int slo, int shi, int tlo, int thi, int clo, int chi, int thlo, int thhi, int hlo,
+    int hhi, cudaStream_t stream) {
   const int lohi[12] = {alo, ahi, slo, shi, tlo, thi, clo, chi, thlo, thhi, hlo, hhi};
-  if (H == 0) return 0;
-  const int col_blocks = (H + kCols - 1) / kCols;
-  const int row_blocks = (B + kRowsPerBlock - 1) / kRowsPerBlock;
-  if (B > 0) {
-    const dim3 grid(col_blocks, row_blocks);
-    quant_lstm_cell_backward_kernel<<<grid, dim3(kCols, kLanes), 0, stream>>>(
-        gates, c, sa, ss, st, sc, sth, sh, dh, dcn, dgates, dc, col_part, scalar_part, B, H,
-        make_bounds(lohi));
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int n_out = 7 * H + 4;
-  quant_lstm_cell_reduce_kernel<<<(n_out + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      col_part, scalar_part, dsa, dss, dscalars, H, row_blocks, row_blocks * col_blocks);
+  if (B <= 0 || H <= 0 || (long long)B * H >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const Strides str = {sa_gate, sa_col, ss_gate, ss_col};
+  quant_lstm_cell_backward_kernel<<<cdiv(H, kCols), dim3(kCols, kLanes), 0, stream>>>(
+      gates, c, sa, ss, st, sc, sth, sh, dh, dcn, dgates, dc, dsa, dss, dscalars, part, ticket,
+      B, H, quant_lstm_cell_backward_plan(B), str, make_bounds(lohi));
   return static_cast<int>(cudaGetLastError());
 }

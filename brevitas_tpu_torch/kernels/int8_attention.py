@@ -12,7 +12,9 @@ With symmetric int8 Q/K/V codes and a frozen unsigned probability grid
 ``int8_attention`` (prefill) and ``int4kv_decode_attention`` (one decode
 step against a cache packed two positions per byte) launch hand-written
 Hopper kernels (``csrc/int8_attention.cu``, ``csrc/int4kv_decode_attention.cu``)
-on CUDA tensors and take their plain versions on CPU tensors. The decode
+on CUDA tensors and take their plain versions on CPU tensors. The prefill
+kernel runs QK^T and PV on the tensor cores (s8 and u8 x s8 ``wgmma``) over
+64 query rows a CTA; :func:`int8_attention_plan` names its variant. The decode
 kernel reads each valid packed row once and splits long caches over a
 thread-block cluster; :func:`int4kv_decode_attention_plan` names the variant
 its launcher takes.
@@ -40,7 +42,7 @@ import torch
 from brevitas_tpu_torch.kernels import _launch
 from brevitas_tpu_torch.ops import MASKED_SCORE, causal_mask, softmax
 
-MAX_HEAD_DIM = 256  # the kernels keep one row of up to 256 codes per thread block
+MAX_HEAD_DIM = 256  # the kernels instantiate up to four 64-column output chunks
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -123,6 +125,31 @@ def _scales(qk_scale, p_scale, v_scale, device) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _attention_launcher():
     return _launch.bind("int8_attention", "int8_attention_launch", 6, 7)
+
+
+@functools.lru_cache(maxsize=None)
+def _attention_planner():
+    return _launch.bind_ints("int8_attention", "int8_attention_plan", 3)
+
+
+def int8_attention_plan(q_i8, k_i8, v_i8) -> str:
+    """The variant the CUDA launcher of :func:`int8_attention` takes, e.g.
+    ``"rows64 keys64 D64 kv:tma"``: query rows a CTA, keys a tile, the head
+    dim padded to its 64-column output chunks, and whether K and V tiles
+    come by TMA (D % 16 == 0 and both bases 16-byte aligned) or by byte
+    loads. The Python twin of ``int8_attention_plan`` in
+    ``csrc/int8_attention.cu`` (:func:`int8_attention_plan_code` asks it)."""
+    d = q_i8.shape[-1]
+    tma = d % 16 == 0 and k_i8.data_ptr() % 16 == 0 and v_i8.data_ptr() % 16 == 0
+    return f"rows64 keys64 D{64 * -(-d // 64)} kv:{'tma' if tma else 'bytes'}"
+
+
+def int8_attention_plan_code(q_i8, k_i8, v_i8) -> str:
+    """:func:`int8_attention_plan` as the compiled launcher computes it
+    (needs the built library)."""
+    code = _attention_planner()(q_i8.shape[-1], int(k_i8.data_ptr() % 16 == 0),
+                                int(v_i8.data_ptr() % 16 == 0))
+    return f"rows64 keys64 D{64 * (code & 0xFF)} kv:{'tma' if code >> 8 & 1 else 'bytes'}"
 
 
 def int8_attention(q_i8, k_i8, v_i8, qk_scale, p_scale, v_scale,

@@ -50,7 +50,7 @@ import torch
 from torch import nn
 
 from brevitas_tpu_torch.core import quant as Qf
-from brevitas_tpu_torch.kernels.lstm_cell import cell_step, quant_lstm_cell
+from brevitas_tpu_torch.kernels.lstm_cell import cell_step, gate_columns, quant_lstm_cell
 from brevitas_tpu_torch.nn.linear import compute_dtype_matmul
 from brevitas_tpu_torch.ops import round_ste, sigmoid_f64, tanh_f64, tensor_clamp, tensor_clamp_ste
 from brevitas_tpu_torch.ops.numeric import max_int, min_int
@@ -158,9 +158,12 @@ class _QuantLSTMLayer(nn.Module):
     def _fused_stage(self, quants):
         """Static quant parameters of one packed stage: ``(scale, bit_width,
         quantizer)``, the scale a scalar when every quantizer is one shared
-        instance, else an (n H,) vector through which gradients reach each
-        learned scale; None for an all-NONE stage. Raises
-        ``_FusedUnsupported`` when a quantizer carries per-call state."""
+        instance, else an (n,) vector of the n per-tensor scales (one per
+        gate block; ``kernels.lstm_cell.gate_columns`` spreads it over the
+        block's columns) or an (n H,) vector of per-channel ones, through
+        which gradients reach each learned scale; None for an all-NONE
+        stage. Raises ``_FusedUnsupported`` when a quantizer carries
+        per-call state."""
         params = [q.static_int_params() for q in quants]
         if any(p is None for p in params):
             raise _FusedUnsupported
@@ -174,6 +177,8 @@ class _QuantLSTMLayer(nn.Module):
             raise _FusedUnsupported
         if all(q is q0 for q in quants[1:]):
             return params[0][0], params[0][1], q0
+        if all(p[0].numel() == 1 for p in params):
+            return torch.stack([p[0].reshape(()) for p in params]), params[0][1], q0
         h = self.hidden_size
         scale = torch.cat([p[0].reshape(-1).expand(h) for p in params])
         return scale, params[0][1], q0
@@ -214,9 +219,10 @@ class _QuantLSTMLayer(nn.Module):
             cfg = stages[k][2].cfg
             if cfg.clamp_ste or stages[k][2]._float_to_int is not round_ste:
                 return None
-        h = self.hidden_size
-        sa = stages["acc"][0].reshape(-1).expand(4 * h)
-        ss = stages["sig"][0].reshape(-1).expand(3 * h)
+        # sa and ss as the stages hold them (one, n or n H values): the
+        # kernels read them through strides
+        sa = stages["acc"][0].reshape(-1)
+        ss = stages["sig"][0].reshape(-1)
         scalars = [stages[k][0].reshape(()) for k in ("tanh_g", "cell", "tanh_h", "hidden")]
         return sa, ss, scalars, tuple(_int_bounds(stages[k][2].cfg) for k in STAGES)
 
@@ -230,8 +236,14 @@ class _QuantLSTMLayer(nn.Module):
             def step(gates, c):
                 return quant_lstm_cell(gates, c, sa, ss, st, sc, sth, sh, bounds)
         else:
+            h_dim = self.hidden_size
+            plain = dict(stages)
+            for k, n in (("acc", 4), ("sig", 3)):
+                if plain[k] is not None:
+                    plain[k] = (gate_columns(plain[k][0], n, h_dim), *plain[k][1:])
+
             def step(gates, c):
-                return cell_step(gates, c, lambda x, k: self._fused_quant(x, stages[STAGES[k]]))
+                return cell_step(gates, c, lambda x, k: self._fused_quant(x, plain[STAGES[k]]))
         if qw_hh.dtype == c.dtype:
             def gemm(h):
                 return h @ qw_hh

@@ -576,8 +576,15 @@ LLAMA_KN_COUNT = {(1024, 1024): 24, (1024, 2752): 12, (2752, 1024): 6, (1024, 20
 LLAMA_M = [PREFILL_BATCH * PREFILL_T, DECODE_BATCH]
 
 # attention kernels: prefill (BH, Tq, Tk, D, causal, kv_groups) and decode
-# (BH, l_half, D) at the given positions; the first rows are the main path's
-ATTN_SHAPES = [(128, 512, 512, 64, True, 1), (6, 77, 45, 40, True, 2)]
+# (BH, l_half, D) at the given positions; the first rows are the main path's.
+# The prefill edges: D 40 (byte loads, D padded to 64) with Tq > Tk (fully
+# masked rows) and a ragged key tile; non-causal over a ragged Tk; Tq > Tk on
+# TMA; D 256 and D 192 (four and three 64-column chunks, two 128-byte column
+# blocks); D 96 and 4 query heads a KV head
+ATTN_SHAPES = [(128, 512, 512, 64, True, 1), (6, 77, 45, 40, True, 2),
+               (32, 200, 300, 64, False, 1), (8, 300, 100, 64, True, 1),
+               (16, 256, 256, 256, True, 1), (8, 100, 130, 192, False, 2),
+               (32, 128, 200, 96, True, 4)]
 DECODE_SHAPE = (256, 512, 64)
 DECODE_POS = [63, 0, 511, 1023]
 # a ragged grouped-query decode shape (BH, l_half, D, kv_groups) at positions
@@ -639,6 +646,8 @@ def phase_attention_kernels(dev, peaks):
         _needs_scratch,
         int4kv_decode_attention_plan,
         int4kv_decode_scales,
+        int8_attention_plan,
+        int8_attention_plan_code,
         launch_int4kv_decode_attention,
     )
 
@@ -658,6 +667,10 @@ def phase_attention_kernels(dev, peaks):
         qk = torch.tensor(3.0 / (127 ** 2 / 3 * d ** 0.5), device=dev)
         ps, vs = torch.tensor(0.25 / 255, device=dev), torch.tensor(0.02, device=dev)
         args = (qk, ps, vs, 255, causal, groups)
+        plan = int8_attention_plan(q, k, v)
+        if plan != int8_attention_plan_code(q, k, v):
+            raise AssertionError(f"int8_attention_plan says {plan!r}, the launcher "
+                                 f"{int8_attention_plan_code(q, k, v)!r}")
         got, got_codes = int8_attention(q, k, v, *args, return_codes=True)
         want, want_codes = int8_attention_reference(q, k, v, *args, return_codes=True)
         torch.cuda.synchronize()
@@ -674,11 +687,12 @@ def phase_attention_kernels(dev, peaks):
         pairs = int(torch.where(lims > 0, lims, tk).sum()) * bh if causal else bh * tq * tk
         nbytes = bh * tq * d + 2 * (bh // groups) * tk * d + 4 * bh * tq * d + 12
         t_b, by = bound(nbytes, 4.0 * pairs * d, bw, int8_peak)
-        rows.append(dict(kernel="int8_attention", shape=(bh, tq, tk, d), ms=t_k,
-                         plain_ms=t_p, library_ms=t_l, bound_ms=t_b, bound_by=by,
-                         err=err, flips=flips))
-        print(f"[attn] int8_attention {(bh, tq, tk, d)} causal={causal} groups={groups} | "
-              f"{t_k:.4f} {t_p:.4f} {t_l:.4f} {t_b:.4g} {by} | {flips} of "
+        rows.append(dict(kernel="int8_attention", shape=(bh, tq, tk, d), causal=causal,
+                         groups=groups, variant=plan, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                         bound_ms=t_b, bound_by=by, err=err, flips=flips,
+                         codes=got_codes.numel()))
+        print(f"[attn] int8_attention {(bh, tq, tk, d)} causal={causal} groups={groups} "
+              f"{plan} | {t_k:.4f} {t_p:.4f} {t_l:.4f} {t_b:.4g} {by} | {flips} of "
               f"{got_codes.numel()}, {err:.3g}")
 
     q_s = torch.tensor(0.01, device=dev)
@@ -1086,16 +1100,19 @@ def profile_steps(fn, what: str, unit: str, n: int = 3, grad: bool = False) -> d
             for _ in range(n):
                 fn()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    rows = [(e.key, e.self_device_time_total / 1e3 / n) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and not e.key.startswith("Activity Buffer")]
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+              and not e.key.startswith("Activity Buffer")]
+    rows = [(e.key, e.self_device_time_total / 1e3 / n) for e in events]
     busy_ms = sum(t for _, t in rows)
+    launches = sum(e.count for e in events) / n
     top = sorted(rows, key=lambda r: -r[1])[:8]
     print(f"[{what}] profile per {unit}: device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms "
-          f"wall under the profiler (idle share {1 - busy_ms / wall_ms:.3f}); top device ms: "
+          f"wall under the profiler (idle share {1 - busy_ms / wall_ms:.3f}), {launches:g} "
+          f"device activities; top device ms: "
           + ", ".join(f"{k[:48]} {t:.4f}" for k, t in top))
     return {"busy_ms": busy_ms, "wall_ms": wall_ms, "idle_share": 1 - busy_ms / wall_ms,
-            "top": [(k[:64], t) for k, t in top]}
+            "device_activities": launches, "top": [(k[:64], t) for k, t in top]}
 
 
 def profile_batch(model, batch: np.ndarray, what: str) -> None:
@@ -1296,8 +1313,14 @@ def phase_serve_decode(dev) -> dict:
 LSTM_LEG = dict(feat=128, hidden=512, layers=2, batch=64, seq=64)
 LSTM_TIMED_STEPS = 5
 LSTM_LR = 1e-3
-# (B, H) of the cell kernels' checks: the leg's, and one off every tile
-LSTM_KERNEL_SHAPES = [(64, 512), (3, 100)]
+# (B, H) of the cell kernels' checks: the leg's, two off the forward's
+# 256-thread blocks (101 also off the backward's 4 columns a CTA), and a
+# batch past a backward CTA's 64 row lanes (each thread takes 16 rows)
+LSTM_KERNEL_SHAPES = [(64, 512), (3, 100), (3, 101), (1024, 512)]
+# how sa and ss come: one per column (4H, 3H), one per gate block (4, 3: the
+# leg's per-tensor gate quantizers, as QuantLSTM passes them), or one value;
+# every form at the leg's shape, per column elsewhere
+LSTM_SCALE_FORMS = ("column", "gate", "one")
 # the leg's six stages (acc, sigmoid, tanh_g, cell, tanh_h, hidden): int8,
 # the sigmoid uint8
 LSTM_BOUNDS = ((-128, 127), (0, 255), (-128, 127), (-128, 127), (-128, 127), (-128, 127))
@@ -1317,11 +1340,12 @@ LSTM_BF16_GRAD_RTOL = 2.0 ** -6
 LSTM_FQ_PER_STEP = LSTM_LEG["layers"] * 9
 
 
-def lstm_cell_inputs(dev, b: int, h: int, seed: int):
+def lstm_cell_inputs(dev, b: int, h: int, seed: int, form: str = "column"):
     """Gates, state, scales and upstream gradients of one cell step, drawn so
     that every stage's clamp is reached: |gates| beyond 127 * sa, 255 * ss
     and 127 * st below 1, |f c + i g| beyond 127 * sc, 127 * sth below 1,
-    127 * sh below the largest o * th."""
+    127 * sh below the largest o * th. ``form``: how many values sa and ss
+    have (LSTM_SCALE_FORMS)."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def uniform(shape, lo, hi):
@@ -1329,7 +1353,10 @@ def lstm_cell_inputs(dev, b: int, h: int, seed: int):
 
     gates = torch.randn((b, 4 * h), generator=g, device=dev) * 4
     c = torch.randn((b, h), generator=g, device=dev) * 2
-    scales = (uniform(4 * h, 0.01, 0.05), uniform(3 * h, 0.002, 0.006),
+    n_sa, n_ss = {"column": (4 * h, 3 * h), "gate": (4, 3), "one": (1, 1)}[form]
+    # a few ss all below 1 / 255: the sigmoid's top clamp is reached
+    scales = (uniform(n_sa, 0.01, 0.05),
+              uniform(n_ss, 0.002, 0.006 if n_ss > 3 else 0.0038),
               *(torch.tensor(v, device=dev) for v in (0.005, 0.015, 0.005, 0.003)))
     dh = torch.randn((b, h), generator=g, device=dev)
     dcn = torch.randn((b, h), generator=g, device=dev)
@@ -1345,14 +1372,24 @@ def phase_lstm_kernels(dev, vector_peaks, bw) -> list:
         quant_lstm_cell_backward_reference,
         quant_lstm_cell_reference,
     )
-    from brevitas_tpu_torch.kernels.lstm_cell import quant_lstm_cell_scale_terms
+    from brevitas_tpu_torch.kernels import _launch
+    from brevitas_tpu_torch.kernels.lstm_cell import (
+        quant_lstm_cell_backward_plan,
+        quant_lstm_cell_scale_terms,
+    )
 
     f32_peak, f64_peak = vector_peaks
     rows = []
-    print("[lstm_kernels] kernel B H | kernel_ms plain_ms bound_ms bound_by | max_abs_err "
-          "| checks (no PyTorch call computes this function: library_ms null)")
-    for b, h in LSTM_KERNEL_SHAPES:
-        gates, c, scales, dh, dcn = lstm_cell_inputs(dev, b, h, seed=b * h)
+    planner = _launch.bind_ints("quant_lstm_cell", "quant_lstm_cell_backward_plan", 1)
+    print("[lstm_kernels] kernel B H scales | kernel_ms plain_ms bound_ms bound_by | "
+          "max_abs_err | checks (no PyTorch call computes this function: library_ms null)")
+    cases = [(b, h, form) for b, h in LSTM_KERNEL_SHAPES
+             for form in (LSTM_SCALE_FORMS if (b, h) == (64, 512) else ("column",))]
+    for b, h, form in cases:
+        if quant_lstm_cell_backward_plan(b) != planner(b):
+            raise AssertionError(f"quant_lstm_cell_backward_plan({b}) = "
+                                 f"{quant_lstm_cell_backward_plan(b)}, the launcher {planner(b)}")
+        gates, c, scales, dh, dcn = lstm_cell_inputs(dev, b, h, seed=b * h, form=form)
         args = (gates, c, *scales)
         # the plain version's per-element scale-gradient terms, and each
         # stage's values before rounding
@@ -1367,20 +1404,26 @@ def phase_lstm_kernels(dev, vector_peaks, bw) -> list:
         torch.cuda.synchronize()
         if not (torch.equal(h_k, h_r) and torch.equal(c_k, c_r)):
             raise AssertionError(
-                f"quant_lstm_cell differs from its plain version at {(b, h)}: h "
+                f"quant_lstm_cell differs from its plain version at {(b, h)} {form}: h "
                 f"{int((h_k != h_r).sum())}, c_new {int((c_k != c_r).sum())} of {h_r.numel()}")
         fwd_err = max(float((h_k - h_r).abs().max()), float((c_k - c_r).abs().max()))
 
+        launched = quant_lstm_cell_backward.launches
         got = quant_lstm_cell_backward(*args, dh, dcn, LSTM_BOUNDS)
         again = quant_lstm_cell_backward(*args, dh, dcn, LSTM_BOUNDS)
+        if quant_lstm_cell_backward.launches - launched != 2:
+            raise AssertionError("quant_lstm_cell_backward: not one launch a call")
         want = quant_lstm_cell_backward_reference(*args, dh, dcn, LSTM_BOUNDS)
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
-            raise AssertionError(f"quant_lstm_cell_backward: two runs differ at {(b, h)}")
+            raise AssertionError(f"quant_lstm_cell_backward: two runs differ at {(b, h)} "
+                                 f"{form}")
+        if any(k_.shape != r_.shape for k_, r_ in zip(got, want)):
+            raise AssertionError(f"quant_lstm_cell_backward: gradient shapes at {form}")
         for name, k_, r_ in (("dgates", got[0], want[0]), ("dc", got[1], want[1])):
             if not torch.allclose(k_, r_, rtol=1e-5, atol=1e-6):
-                raise AssertionError(f"quant_lstm_cell_backward {name} at {(b, h)}: max "
-                                     f"{float((k_ - r_).abs().max())}")
+                raise AssertionError(f"quant_lstm_cell_backward {name} at {(b, h)} {form}: "
+                                     f"max {float((k_ - r_).abs().max())}")
         bwd_err = max(float((k_ - r_).abs().max()) for k_, r_ in zip(got[:2], want[:2]))
         # each scale's gradient against the float64 sum of those terms
         if not (torch.equal(fwd[0], h_r) and torch.equal(fwd[1], c_r)):
@@ -1388,17 +1431,22 @@ def phase_lstm_kernels(dev, vector_peaks, bw) -> list:
         worst = worst_plain = 0.0
         for name, k_, r_, t_ in zip(("dsa", "dss", "dst", "dsc", "dsth", "dsh"),
                                     got[2:], want[2:], terms):
-            dims = (0,) if t_.shape[1] == k_.numel() else (0, 1)
-            exact, mass = t_.sum(dims), t_.abs().sum(dims)
+            # a scale's terms summed over the elements that share it: the
+            # batch (per column), the batch and a gate block's columns, or all
+            n = k_.numel()
+            t3 = t_.reshape(t_.shape[0], n, -1) if n > 1 else t_.reshape(t_.shape[0], 1, -1)
+            exact, mass = t3.sum((0, 2)), t3.abs().sum((0, 2))
             dev_k = (k_.double().reshape(exact.shape) - exact).abs()
             dev_r = (r_.double().reshape(exact.shape) - exact).abs()
             ratio = float((dev_k / mass.clamp_min(1e-300)).max())
             worst = max(worst, ratio)
             worst_plain = max(worst_plain, float((dev_r / mass.clamp_min(1e-300)).max()))
             if not bool((dev_k <= LSTM_SCALE_SUM_RTOL * mass).all()):
-                raise AssertionError(f"quant_lstm_cell_backward {name} at {(b, h)}: "
+                raise AssertionError(f"quant_lstm_cell_backward {name} at {(b, h)} {form}: "
                                      f"|kernel - f64| / sum|term| = {ratio:.3g}")
-        print(f"[lstm_kernels] ({b}, {h}): forward bit for bit; backward dgates/dc max |diff| "
+        print(f"[lstm_kernels] ({b}, {h}) scales per {form}, backward "
+              f"{quant_lstm_cell_backward_plan(b)} rows a thread: forward "
+              f"bit for bit; backward dgates/dc max |diff| "
               f"{bwd_err:.3g}, scale sums max |kernel - f64| / sum|term| {worst:.3g} (plain "
               f"version {worst_plain:.3g}), same bits on a second run; clamped shares per "
               f"stage {[round(x, 4) for x in shares]}")
@@ -1408,7 +1456,7 @@ def phase_lstm_kernels(dev, vector_peaks, bw) -> list:
             t_fp = cuda_ms(lambda: quant_lstm_cell_reference(*args, LSTM_BOUNDS))
         t_bk = cuda_ms(lambda: quant_lstm_cell_backward(*args, dh, dcn, LSTM_BOUNDS))
         t_bp = cuda_ms(lambda: quant_lstm_cell_backward_reference(*args, dh, dcn, LSTM_BOUNDS))
-        el, n_scales = b * h, 7 * h + 4
+        el, n_scales = b * h, scales[0].numel() + scales[1].numel() + 4
         # bytes: each input read once, each output written once; operations
         # per element as written (forward: 7 stages of divide, round, multiply
         # and 4 products or sums in float32, 3 sigmoids of exp, add and
@@ -1421,22 +1469,23 @@ def phase_lstm_kernels(dev, vector_peaks, bw) -> list:
             t_bytes = nbytes / bw * 1e3
             t_ops = el * (n32 / f32_peak + n64 / f64_peak) * 1e3
             t_b, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-            rows.append(dict(kernel=name, b=b, h=h, ms=t_k, plain_ms=t_p, bound_ms=t_b,
-                             bound_by=by, err=err, bytes=nbytes, scale_sum_ratio=worst))
-            print(f"[lstm_kernels] {name} {b} {h} | {t_k:.4f} {t_p:.4f} {t_b:.3g} {by} | "
-                  f"{err:.3g}")
+            rows.append(dict(kernel=name, b=b, h=h, scales=form, ms=t_k, plain_ms=t_p,
+                             bound_ms=t_b, bound_by=by, err=err, bytes=nbytes,
+                             scale_sum_ratio=worst))
+            print(f"[lstm_kernels] {name} {b} {h} {form} | {t_k:.4f} {t_p:.4f} {t_b:.3g} "
+                  f"{by} | {err:.3g}")
     return rows
 
 
 def check_scale_routing(dev, layer) -> float:
     """The backward kernel's scale gradients routed to one layer's learned
-    scales (``_QuantLSTMCell.backward``, ``_grad_like`` and the expand of
-    the 4 accumulator and 3 sigmoid gate scales over their gate blocks, as
-    the layer's ``_fused_cell_params`` builds them): one cell step on the
+    scales (``_QuantLSTMCell.backward``, ``_grad_like`` and the stack of the
+    4 accumulator and 3 sigmoid gate scales, one per gate block, as the
+    layer's ``_fused_cell_params`` builds them): one cell step on the
     card at the leg's shape, against the float64 sum of the plain version's
     terms over each scale's block, within LSTM_SCALE_SUM_RTOL of the terms'
-    sum of magnitudes (the kernel rows' bound; the expand's backward adds a
-    float32 pairwise sum over H columns, about log2(H) roundings). A scale
+    sum of magnitudes (the kernel rows' bound; the kernel sums each gate
+    block in float64 and rounds once). A scale
     fed the wrong gate's sum misses it by the size of a gate's gradient.
     Returns the largest |grad - f64| / sum |term|, both taken to the
     parameter through the quantizer's own d scale / d parameter."""
@@ -1600,7 +1649,7 @@ def phase_lstm_qat(dev, bf16: bool = False) -> dict:
     # A weight's gradient sums many terms of one sign pattern: within 1e-4 of
     # its largest element. A cell quantizer's learned scale reaches the
     # kernel path only through the backward kernel's sums, _grad_like and the
-    # per-gate expand back to the 4 + 3 gate scales: each within 1e-4 of the
+    # stack of the 4 + 3 gate scales: each within 1e-4 of the
     # largest cell-scale gradient, since its terms g * (q - x / s) cancel to a
     # remainder whose float32 error is set by the size of those terms, not by
     # its own (a swapped gate or a misrouted sum moves a scale's gradient by
@@ -2034,9 +2083,11 @@ def phase_bnn_pynq(dev) -> dict:
 
 
 def lstm_summary(rows, name, lstm, replaces):
-    """The cell kernel's row at the leg's shape; its launches over the QAT
-    phases' warm-ups and timed steps (float32 and bf16 operands)."""
-    row = next(r for r in rows if r["kernel"] == name and (r["b"], r["h"]) == (64, 512))
+    """The cell kernel's row at the leg's shape with the leg's scales (one
+    per gate block); its launches over the QAT phases' warm-ups and timed
+    steps (float32 and bf16 operands)."""
+    row = next(r for r in rows if r["kernel"] == name and (r["b"], r["h"]) == (64, 512)
+               and r["scales"] == "gate")
     return {
         "name": name, "route": "cuda", "source": "brevitas_tpu_torch/csrc/quant_lstm_cell.cu",
         "replaces": replaces, "launches": sum(run["launches"][name] for run in lstm.values()),
@@ -2045,10 +2096,11 @@ def lstm_summary(rows, name, lstm, replaces):
         "bound_by": row["bound_by"], "library_ms": None,
         "library_note": "no PyTorch call computes this function (six fake-quant stages "
                         "around the LSTM nonlinearities)",
-        "per": "one launch at B 64, H 512",
+        "per": "one launch at B 64, H 512, sa and ss one per gate block (the leg's)",
         "launches_per_step": lstm["float32"]["launches_per_step"],
-        "unaligned_shape": {k: v for k, v in next(
-            r for r in rows if r["kernel"] == name and (r["b"], r["h"]) != (64, 512)).items()},
+        "by_shape_scales": [{k: r[k] for k in ("b", "h", "scales", "ms", "plain_ms",
+                                               "bound_ms", "bound_by", "err")}
+                            for r in rows if r["kernel"] == name],
     }
 
 
@@ -2101,6 +2153,19 @@ def attention_summary(row, name, launches, source, replaces):
         "sdpa_bf16_ms": row["library_ms"],
         "shape": row["shape"], "pos": row.get("pos"), "code_flips": row["flips_total"],
     }
+
+
+def prefill_attention_entry(attn_rows, launches) -> dict:
+    """int8_attention's row: the main path's shape, and every checked shape
+    with its variant, times and code flips."""
+    entry = attention_summary(attn_rows[0], "int8_attention", launches,
+                              "brevitas_tpu_torch/csrc/int8_attention.cu",
+                              "brevitas_tpu/kernels/int8_attention.py:98")
+    entry["by_shape"] = [
+        {k: r[k] for k in ("shape", "causal", "groups", "variant", "ms", "plain_ms",
+                           "library_ms", "bound_ms", "bound_by", "flips", "codes", "err")}
+        for r in attn_rows if r["kernel"] == "int8_attention"]
+    return entry
 
 
 def main() -> int:
@@ -2197,11 +2262,8 @@ def main() -> int:
                        lfc_launches["int4_weight_only_matmul"],
                        "brevitas_tpu_torch/csrc/int4_weight_only_matmul.cu",
                        "brevitas_tpu/kernels/int4.py:229"),
-        attention_summary(attn_rows[0], "int8_attention",
-                          prefill["launches"]["int8_attention"]
-                          + w4a8_prefill["launches"]["int8_attention"],
-                          "brevitas_tpu_torch/csrc/int8_attention.cu",
-                          "brevitas_tpu/kernels/int8_attention.py:98"),
+        prefill_attention_entry(attn_rows, prefill["launches"]["int8_attention"]
+                                + w4a8_prefill["launches"]["int8_attention"]),
         decode_entry,
         lstm_summary(lstm_rows, "quant_lstm_cell", lstm, "brevitas_tpu/kernels/lstm_cell.py:176"),
         lstm_summary(lstm_rows, "quant_lstm_cell_backward", lstm,

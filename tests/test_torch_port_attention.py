@@ -40,6 +40,7 @@ from brevitas_tpu_torch.kernels import (
     unpack_kv_halves,
     update_kv_packed,
 )
+from brevitas_tpu_torch.kernels.int8_attention import int8_attention_plan
 
 # the JAX package's kernels module exports the functions under the module's name
 jax_attn = importlib.import_module("brevitas_tpu.kernels.int8_attention")
@@ -53,6 +54,12 @@ PREFILL_CASES = [
     (3, 20, 9, 12, True, True),     # Tq > Tk: rows 0..10 fully masked
     (2, 9, 20, 33, True, False),    # Tq < Tk: rectangular causal offset
     (2, 17, 23, 8, False, False),
+    # the CUDA kernel's edges: 64 query rows a CTA and 64 keys a tile, D
+    # padded to 32 for QK^T and to 64-column chunks for PV
+    (2, 70, 70, 40, True, False),   # two row blocks and key tiles, D 40
+    (2, 80, 40, 64, True, False),   # Tq > Tk over a row block: rows 0..39 fully masked
+    (2, 30, 100, 96, False, False),  # non-causal, a ragged second key tile, D 96
+    (1, 16, 24, 256, True, False),  # D 256: four output chunks
 ]
 P_SCALE, V_SCALE = np.float32(0.25 / 255), np.float32(0.02)
 
@@ -123,6 +130,40 @@ def test_int8_attention_dispatch_gqa_matches_jax(rng):
         jnp.asarray(q), jnp.asarray(expand(k)), jnp.asarray(expand(v)),
         *map(jnp.float32, scales), head_dim=d, causal=True))
     np.testing.assert_array_equal(port, ref)
+
+
+@pytest.mark.parametrize("groups,t,d", [(1, 70, 40), (2, 65, 64), (4, 40, 96)])
+def test_int8_attention_kv_groups_match_jax(rng, groups, t, d):
+    """kv_groups (1, 2 and 4 query heads a KV head) at the kernel's tile
+    edges: the plain version against the JAX package's on copy-expanded
+    codes."""
+    b, kvh = 2, 2
+    h = kvh * groups
+    q = _codes(rng, (b * h, t, d))
+    k, v = _codes(rng, (b * kvh, t, d)), _codes(rng, (b * kvh, t, d))
+    args = (_t(_qk_scale(d)), _t(P_SCALE), _t(V_SCALE))
+    port = int8_attention(_t(q), _t(k), _t(v), *args, causal=True, kv_groups=groups).numpy()
+    expand = lambda a: np.repeat(a, groups, axis=0)  # noqa: E731
+    ref = np.asarray(jax_attn.int8_attention_reference(
+        jnp.asarray(q), jnp.asarray(expand(k)), jnp.asarray(expand(v)), jnp.float32(_qk_scale(d)),
+        jnp.float32(P_SCALE), jnp.float32(V_SCALE), causal=True))
+    np.testing.assert_array_equal(port, ref)
+
+
+@pytest.mark.parametrize("d,offset,plan", [
+    (1, 0, "D64 kv:bytes"), (16, 0, "D64 kv:tma"), (40, 0, "D64 kv:bytes"),
+    (48, 0, "D64 kv:tma"), (64, 0, "D64 kv:tma"), (64, 4, "D64 kv:bytes"),
+    (65, 0, "D128 kv:bytes"), (128, 0, "D128 kv:tma"), (129, 0, "D192 kv:bytes"),
+    (192, 0, "D192 kv:tma"), (193, 0, "D256 kv:bytes"), (256, 0, "D256 kv:tma")])
+def test_int8_attention_plan(d, offset, plan):
+    """The prefill kernel's variant at its boundaries: the head dim padded
+    to 64-column output chunks, and TMA tiles only where a row is a
+    multiple of 16 bytes and K and V start 16-byte aligned (a contiguous
+    view at a 4-byte offset takes byte loads)."""
+    q = torch.zeros((1, 4, d), dtype=torch.int8)
+    kv = torch.zeros(offset + 8 * d, dtype=torch.int8)[offset:].reshape(1, 8, d)
+    assert kv.is_contiguous()
+    assert int8_attention_plan(q, kv, kv) == f"rows64 keys64 {plan}"
 
 
 def test_pack_unpack_update_match_jax_bit_for_bit(rng):

@@ -151,7 +151,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "brevitas_tpu"}
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in
-    [*(REPO / "brevitas_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]))
+    [*(REPO / "brevitas_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
+     REPO / "kernel_probes.py"]))
 def test_port_imports_no_jax(path):
     """Read from the AST: the environment may import JAX in advance, so a
     sys.modules check would prove nothing."""

@@ -82,7 +82,10 @@ from brevitas_tpu_torch.kernels import (
     quant_lstm_cell_backward_reference,
     quant_lstm_cell_reference,
 )
-from brevitas_tpu_torch.kernels.lstm_cell import quant_lstm_cell_scale_terms
+from brevitas_tpu_torch.kernels.lstm_cell import (
+    quant_lstm_cell_backward_plan,
+    quant_lstm_cell_scale_terms,
+)
 from brevitas_tpu_torch.nn import QuantLSTM as PortQuantLSTM
 from brevitas_tpu_torch.quant import presets as port_presets
 from brevitas_tpu_torch.quant.quantizers import (
@@ -277,27 +280,29 @@ def _cell_args():
     return args, dh, dcn
 
 
+@jax.jit
+def _jax_cell_vjp(args, dh, dcn):
+    """Forward and gradients of sum(h * dh) + sum(c_new * dcn) (the VJP with
+    cotangents dh, dcn) through the Pallas kernel (interpret mode) and the
+    jnp composition, under one jit."""
+    def pallas(*v):
+        return jax_quant_lstm_cell(*v, H, BOUNDS, True)
+
+    outs, grads = [], []
+    for fn in (pallas, _jnp_cell):
+        out, vjp = jax.vjp(fn, *args)
+        outs.append(out)
+        grads.append(vjp((dh, dcn)))
+    return outs, grads
+
+
 @pytest.fixture(scope="module")
 def cell():
-    """The cell in both packages: forward and gradients of
-    sum(h * dh) + sum(c_new * dcn) (the VJP with cotangents dh, dcn) through
-    the Pallas kernel (interpret mode) and the jnp composition, under one
-    jit."""
+    """The cell in both packages: forward and gradients through the Pallas
+    kernel (interpret mode) and the jnp composition (``_jax_cell_vjp``)."""
     args, dh, dcn = _cell_args()
-
-    @jax.jit
-    def both(*a):
-        def pallas(*v):
-            return jax_quant_lstm_cell(*v, H, BOUNDS, True)
-
-        outs, grads = [], []
-        for fn in (pallas, _jnp_cell):
-            out, vjp = jax.vjp(fn, *a)
-            outs.append(out)
-            grads.append(vjp((jnp.asarray(dh), jnp.asarray(dcn))))
-        return outs, grads
-
-    (pallas_out, jnp_out), (pallas_grads, jnp_grads) = both(*(jnp.asarray(a) for a in args))
+    (pallas_out, jnp_out), (pallas_grads, jnp_grads) = _jax_cell_vjp(
+        tuple(jnp.asarray(a) for a in args), jnp.asarray(dh), jnp.asarray(dcn))
     t = [torch.from_numpy(np.asarray(a)) for a in args]
     dh_t, dcn_t = torch.from_numpy(dh), torch.from_numpy(dcn)
     with torch.no_grad():
@@ -349,6 +354,80 @@ def test_cell_backward_matches_jax(cell, ref):
         assert np.all(np.abs(got - exact) <= 1e-5 * mass)
         assert np.all(np.abs(exp - exact) <= 1e-5 * mass), ref
         assert np.all(np.abs(got - exp) <= 2e-5 * mass), ref
+
+
+# sa and ss per gate block (the leg's per-tensor gate quantizers, as
+# QuantLSTM passes them) or one broadcast value; the JAX cell takes them
+# spread over the gate columns, (4H,) and (3H,)
+SCALE_FORMS = {"gate": (np.float32([0.02, 0.035, 0.012, 0.045]),
+                        np.float32([0.0035, 0.008, 0.0025])),
+               "one": (np.float32([0.03]), np.float32([0.0035]))}
+
+
+@pytest.fixture(scope="module")
+def cell_per_tensor():
+    """For each SCALE_FORMS entry: the port's plain backward at the compact
+    scales (what the wrapper runs on a CPU tensor), JAX's gradients at the
+    scales spread over the columns (the jit of ``cell``, reused), the port's
+    plain backward at the spread scales, and the float64 terms of each
+    scale's gradient at the compact scales."""
+    args, dh, dcn = _cell_args()
+    dh_t, dcn_t = torch.from_numpy(dh), torch.from_numpy(dcn)
+    out = {}
+    for form, (sa, ss) in SCALE_FORMS.items():
+        spread = [np.repeat(sa, H) if sa.size > 1 else np.full(4 * H, sa[0], np.float32),
+                  np.repeat(ss, H) if ss.size > 1 else np.full(3 * H, ss[0], np.float32)]
+        full = (args[0], args[1], *spread, *args[4:])
+        _, (pallas_grads, jnp_grads) = _jax_cell_vjp(
+            tuple(jnp.asarray(a) for a in full), jnp.asarray(dh), jnp.asarray(dcn))
+        compact = [torch.from_numpy(np.asarray(a)) for a in (args[0], args[1], sa, ss, *args[4:])]
+        wide = [torch.from_numpy(np.asarray(a)) for a in full]
+        terms, parts, _, _ = quant_lstm_cell_scale_terms(*compact, dh_t, dcn_t, BOUNDS)
+        out[form] = {
+            "port": [g.numpy() for g in quant_lstm_cell_backward(*compact, dh_t, dcn_t, BOUNDS)],
+            "pallas": [np.asarray(g) for g in pallas_grads],
+            "jnp": [np.asarray(g) for g in jnp_grads],
+            "spread": [g.numpy() for g in quant_lstm_cell_backward_reference(
+                *wide, dh_t, dcn_t, BOUNDS)],
+            "terms": [tm.numpy() for tm in terms], "parts": [p.numpy() for p in parts]}
+    return out
+
+
+@pytest.mark.parametrize("form", list(SCALE_FORMS))
+@pytest.mark.parametrize("ref", ["pallas", "jnp", "spread"])
+def test_cell_backward_per_tensor_scales(cell_per_tensor, form, ref):
+    """The backward with sa and ss per gate block or one value, against
+    JAX's VJP (Pallas kernel or jnp composition) and the port's own plain
+    backward at the scales spread over the columns: dgates and dc as in
+    test_cell_backward_matches_jax; each compact scale's gradient is the sum
+    of the spread one over the columns that share it, within the same
+    bounds of the float64 sum of its terms."""
+    c = cell_per_tensor[form]
+    port, want = c["port"], c[ref]
+    for got, exp in zip(port[:2], want[:2]):
+        np.testing.assert_allclose(got, exp, rtol=1e-5, atol=1e-5, err_msg=ref)
+    for got, exp, term, part in zip(port[2:], want[2:], c["terms"], c["parts"]):
+        n = np.size(got)
+        assert np.shape(got) == (() if np.ndim(got) == 0 else (n,))
+        # the spread gradient summed over the columns that share a value
+        exp = np.asarray(exp, np.float64).reshape(n, -1).sum(axis=1)
+        exact = term.reshape(term.shape[0], n, -1).sum(axis=(0, 2))
+        mass = part.reshape(part.shape[0], n, -1).sum(axis=(0, 2))
+        got = np.asarray(got, np.float64).reshape(n)
+        assert np.all(np.abs(got - exact) <= 1e-5 * mass)
+        assert np.all(np.abs(exp - exact) <= 1e-5 * mass), ref
+        assert np.all(np.abs(got - exp) <= 2e-5 * mass), ref
+
+
+@pytest.mark.parametrize("b,rows", [(1, 1), (63, 1), (64, 1), (65, 2), (128, 2), (1024, 16),
+                                    (1025, 17)])
+def test_backward_plan(b, rows):
+    """The backward kernel's rows a thread at its boundaries: one row on
+    each of a CTA's 64 row lanes up to B 64, then more; every row covered
+    once."""
+    assert quant_lstm_cell_backward_plan(b) == rows
+    covered = sorted(r * 64 + lane for r in range(rows) for lane in range(64))
+    assert [x for x in covered if x < b] == list(range(b))
 
 
 def test_cell_wrappers_take_the_plain_version_on_the_cpu(cell):
