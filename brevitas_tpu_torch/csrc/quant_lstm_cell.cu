@@ -5,6 +5,8 @@
 // quant_lstm_cell: its forward _cell_fwd_kernel:58 and the backward of its
 // custom VJP, _cell_bwd_kernel:82. One step of QuantLSTM's fused path:
 //
+//     gates   = xp + p                           the step's input projection
+//                                                and the recurrent product
 //     ga      = Q(gates, sa)                     gates (B, 4H) packed (i, f, g, o)
 //     i, f, o = Q(sigmoid(ga_i, ga_f, ga_o), ss) ss (3H,) packed (i, f, o)
 //     g       = Q(tanh(ga_g), st)
@@ -26,6 +28,36 @@
 // column, (1, 0) one per gate block, (0, 0) one broadcast value. QuantLSTM
 // passes its per-tensor gate quantizers' scales as they are, so no call
 // copies an expanded scale and no autograd sum folds a (4H,) gradient back.
+//
+// The forward's stage tables. Every float64 function of the cell takes a
+// quantized value: sigmoid and tanh of a gate take fl(q_a * sa_k) for an
+// integer acc code q_a in [lo, hi], tanh(c') takes fl(q_c * sc) for a cell
+// code q_c. Where sa and ss are one value per gate block or one value, and
+// each code range holds at most kMaxCodes values, the stage that follows
+// each function is a function of the code alone: table k (i, f, g, o) holds
+// Q(float(sigmoid(fl(q_a sa_k))), ss_k) (Q(float(tanh(.)), st) for g) at
+// slot q_a - lo_acc, the cell table Q(float(tanh(fl(q_c sc))), sth) at slot
+// q_c - lo_cell; each table ends with the slots of the codes -0 and NaN (a
+// code keeps the sign of a negative value that rounds to 0, and tanh keeps
+// it). quant_lstm_cell_tables_kernel builds them from the same device
+// helpers as the direct chain (cell_forward), so a table holds the bits the
+// chain would give; QuantLSTM builds them once per layer forward, since its
+// scales change only between optimizer steps. The forward then loads the
+// tables (5,168 bytes at 8-bit codes) into shared memory with one bulk copy
+// that runs while its threads load the gates, and per element forms the code
+// of each of its 6 quantized stages by the same division, round and clamp
+// as the chain (fake_quant) and reads the next stage's value from the
+// table: 6 divisions and 5 shared-memory loads in place of 11 divisions, 3
+// float64 exp and 2 float64 tanh. Scales per column, and wider codes, take
+// the direct chain in the same kernel.
+// quant_lstm_cell_table_plan is the rule (the Python wrapper mirrors it).
+//
+// The gate add. The forward takes the gates as two addends, the input
+// projection's step xp (float32 or bf16, read through its row stride: a
+// step of the (B, T, 4H) projection is read where it lies) and the
+// recurrent product p (float32), forms gates = __fadd_rn(float(xp), p)
+// (torch's add, bit for bit) and writes gates once: the backward's saved
+// residual. The one-tensor form reads gates and writes nothing else.
 //
 // The backward recomputes the forward from gates and c and applies the
 // straight-through estimator of rint with the zeroing clamp, per stage
@@ -52,15 +84,16 @@
 //      device, so no call launches a memset; calls on one device are ordered
 //      by their stream.
 //
-// What bounds it on the H100: bytes. The forward reads gates and c and
-// writes h and c' (28 bytes a (b, j) element: 0.92 MB at the QuantLSTM QAT
-// leg's B 64, H 512, 0.27 us at 3.35 TB/s); the backward reads gates, c, dh
-// and dc' and writes dgates and dc (48 bytes an element, 1.6 MB, 0.48 us).
-// The arithmetic is a few float64 exp and tanh an element. At the leg's
-// size a launch costs more than either, and so does one thread's dependent
-// chain (the forward recomputed, then the backward). The forward: one
-// thread per (b, j), reading the four gate columns j, H + j, 2H + j, 3H + j,
-// each coalesced across a warp's consecutive j. The backward: a CTA of 4
+// What bounds it on the H100: bytes. The two-addend forward reads xp, p and
+// c and writes gates, h and c' (60 bytes a (b, j) element in float32, 52
+// with bf16 xp: 1.97 MB at the QuantLSTM QAT leg's B 64, H 512, 0.59 us at
+// 3.35 TB/s; the one-tensor form 28 bytes, 0.27 us); the backward reads
+// gates, c, dh and dc' and writes dgates and dc (48 bytes an element, 1.6
+// MB, 0.48 us). At the leg's size a launch costs more than either; the
+// direct chain's float64 exp and tanh cost about as much again, which the
+// tables remove. The forward: one thread per (b, j), reading the four gate
+// columns j, H + j, 2H + j, 3H + j, each coalesced across a warp's
+// consecutive j. The backward: a CTA of 4
 // columns x 64 row lanes (256 threads), one row a thread up to B 64 (the
 // leg's (64, 512) runs 128 CTAs on 132 SMs), ceil(B / 64) rows a thread
 // past it. The column sums stay inside the CTA: with a cluster of CTAs
@@ -171,23 +204,149 @@ __device__ __forceinline__ void load_gates(const float* __restrict__ gates, int 
   for (int k = 0; k < 4; ++k) gate[k] = row[k * H + j];
 }
 
+// The stage tables' layout: four gate tables (i, f, g, o) of n_acc + 2
+// slots, then the cell table of n_cell + 2, padded to whole 16-byte chunks
+// (the bulk copy's unit).
+struct TableLayout {
+  int n_acc, n_cell, gate_stride, cell_off, total;
+};
+
+__host__ __device__ inline TableLayout table_layout(int alo, int ahi, int clo, int chi) {
+  TableLayout t;
+  t.n_acc = ahi - alo + 1;
+  t.n_cell = chi - clo + 1;
+  t.gate_stride = t.n_acc + 2;
+  t.cell_off = 4 * t.gate_stride;
+  t.total = (t.cell_off + t.n_cell + 2 + 3) / 4 * 4;
+  return t;
+}
+
+// A code range's slot of code q: q - lo, then -0 at n and NaN at n + 1.
+__device__ __forceinline__ int code_slot(float q, int lo, int n) {
+  const int i = static_cast<int>(q) - lo;
+  return q != q ? n + 1 : (__float_as_uint(q) == 0x80000000u ? n : i);
+}
+
+// The code at slot i of a range of n codes from lo.
+__device__ __forceinline__ float slot_code(int i, int lo, int n) {
+  return i < n ? static_cast<float>(lo + i) : (i == n ? -0.0f : __int_as_float(0x7fffffff));
+}
+
+// One slot of the tables: the stage after a gate's sigmoid or tanh, or after
+// tanh(c'), of the code at that slot, formed as cell_forward forms it.
+__global__ void quant_lstm_cell_tables_kernel(const float* __restrict__ sa,
+                                              const float* __restrict__ ss,
+                                              const float* __restrict__ st,
+                                              const float* __restrict__ sc,
+                                              const float* __restrict__ sth,
+                                              float* __restrict__ tables, Strides str, Bounds bd,
+                                              int alo, int clo, TableLayout tl) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= tl.total) return;
+  float v = 0.0f;  // the padding
+  if (t < tl.cell_off) {
+    const int k = t / tl.gate_stride;
+    const float a = __fmul_rn(slot_code(t % tl.gate_stride, alo, tl.n_acc),
+                              __ldg(sa + k * str.sa_gate));
+    if (k == 2) {
+      v = fake_quant(__double2float_rn(tanh(static_cast<double>(a))), __ldg(st), bd.lo[kTanhG],
+                     bd.hi[kTanhG]).y;
+    } else {
+      const float s = __ldg(ss + (k == 3 ? 2 : k) * str.ss_gate);
+      v = fake_quant(__double2float_rn(sigmoid64(a)), s, bd.lo[kSig], bd.hi[kSig]).y;
+    }
+  } else if (t < tl.cell_off + tl.n_cell + 2) {
+    const float cn = __fmul_rn(slot_code(t - tl.cell_off, clo, tl.n_cell), __ldg(sc));
+    v = fake_quant(__double2float_rn(tanh(static_cast<double>(cn))), __ldg(sth), bd.lo[kTanhH],
+                   bd.hi[kTanhH]).y;
+  }
+  tables[t] = v;
+}
+
+// How the forward gets its gates: read as one float32 tensor, or formed as
+// xp + p from a float32 or bf16 xp read at row stride xp_ld (then written).
+enum { kGates = 0, kAddF32 = 1, kAddBF16 = 2 };
+
+template <int kMode>
+__device__ __forceinline__ void gate_sums(const void* __restrict__ xp, int64_t xp_ld,
+                                          const float* __restrict__ p, float* __restrict__ gates,
+                                          int b, int j, int H, float gate[4]) {
+  const int64_t row = static_cast<int64_t>(b) * 4 * H;
+  for (int k = 0; k < 4; ++k) {
+    const int64_t col = static_cast<int64_t>(k) * H + j;
+    if constexpr (kMode == kGates) {
+      gate[k] = static_cast<const float*>(xp)[row + col];
+    } else {
+      const int64_t e = static_cast<int64_t>(b) * xp_ld + col;
+      const float x = kMode == kAddF32
+                          ? static_cast<const float*>(xp)[e]
+                          : __uint_as_float(static_cast<uint32_t>(
+                                static_cast<const uint16_t*>(xp)[e]) << 16);  // bf16 -> float: exact
+      gate[k] = __fadd_rn(x, p[row + col]);
+    }
+  }
+  if constexpr (kMode != kGates)
+    for (int k = 0; k < 4; ++k) gates[row + static_cast<int64_t>(k) * H + j] = gate[k];
+}
+
+// The forward: one thread per (b, j). With kTables, thread 0 starts one bulk
+// copy of the tables into shared memory, every thread forms its gates and
+// their acc codes meanwhile, and the rest reads the tables; without, the
+// direct chain (cell_forward).
+template <bool kTables, int kMode>
 __global__ void __launch_bounds__(kThreads)
-quant_lstm_cell_kernel(const float* __restrict__ gates, const float* __restrict__ c,
-                       const float* __restrict__ sa, const float* __restrict__ ss,
-                       const float* __restrict__ st, const float* __restrict__ sc,
-                       const float* __restrict__ sth, const float* __restrict__ sh,
-                       float* __restrict__ h, float* __restrict__ c_new, int B, int H,
-                       Strides str, Bounds bd) {
+quant_lstm_cell_kernel(const void* __restrict__ xp, const float* __restrict__ p,
+                       const float* __restrict__ c, const float* __restrict__ sa,
+                       const float* __restrict__ ss, const float* __restrict__ st,
+                       const float* __restrict__ sc, const float* __restrict__ sth,
+                       const float* __restrict__ sh, const float* __restrict__ tables,
+                       float* __restrict__ gates, float* __restrict__ h,
+                       float* __restrict__ c_new, int B, int H, int64_t xp_ld, Strides str,
+                       Bounds bd, int alo, int clo, TableLayout tl) {
+  extern __shared__ __align__(128) float tab[];
+  __shared__ uint64_t bar;
+  if constexpr (kTables) {
+    if (threadIdx.x == 0) {
+      mbar_init(&bar, 1);
+      fence_mbar_init();
+      mbar_arrive_expect_tx(&bar, tl.total * 4);
+      bulk_load(tab, tables, tl.total * 4, &bar);
+    }
+  }
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= static_cast<int64_t>(B) * H) return;
-  const int b = static_cast<int>(i / H), j = static_cast<int>(i % H);
+  const bool live = i < static_cast<int64_t>(B) * H;
+  const int b = live ? static_cast<int>(i / H) : 0, j = live ? static_cast<int>(i % H) : 0;
   float gate[4], sa4[4], ss3[3];
-  load_gates(gates, b, j, H, gate);
-  load_scales(sa, ss, j, str, sa4, ss3);
-  Cell z;
-  cell_forward(gate, c[i], sa4, ss3, __ldg(st), __ldg(sc), __ldg(sth), __ldg(sh), bd, z);
-  h[i] = z.h.y;
-  c_new[i] = z.cn.y;
+  if (live) {
+    gate_sums<kMode>(xp, xp_ld, p, gates, b, j, H, gate);
+    load_scales(sa, ss, j, str, sa4, ss3);
+  }
+  if constexpr (kTables) {
+    int slot[4];
+    for (int k = 0; k < 4; ++k)
+      slot[k] = live ? k * tl.gate_stride +
+                           code_slot(fake_quant(gate[k], sa4[k], bd.lo[kAcc], bd.hi[kAcc]).q,
+                                     alo, tl.n_acc)
+                     : 0;
+    const float c_old = live ? c[i] : 0.0f, s_c = __ldg(sc), s_h = __ldg(sh);
+    __syncthreads();  // the barrier's initialisation, seen by every thread
+    mbar_wait(&bar, 0);
+    if (!live) return;
+    // i, f, g, o from their tables; then as cell_forward
+    const float cpre =
+        __fadd_rn(__fmul_rn(tab[slot[1]], c_old), __fmul_rn(tab[slot[0]], tab[slot[2]]));
+    const float q_c = fake_quant(cpre, s_c, bd.lo[kCell], bd.hi[kCell]).q;
+    const float th = tab[tl.cell_off + code_slot(q_c, clo, tl.n_cell)];
+    const float hp = __fmul_rn(tab[slot[3]], th);
+    h[i] = fake_quant(hp, s_h, bd.lo[kHidden], bd.hi[kHidden]).y;
+    c_new[i] = __fmul_rn(q_c, s_c);
+  } else {
+    if (!live) return;
+    Cell z;
+    cell_forward(gate, c[i], sa4, ss3, __ldg(st), __ldg(sc), __ldg(sth), __ldg(sh), bd, z);
+    h[i] = z.h.y;
+    c_new[i] = z.cn.y;
+  }
 }
 
 // Backward, in one launch (the order of the sums is the note's): one CTA
@@ -366,6 +525,23 @@ quant_lstm_cell_backward_kernel(const float* __restrict__ gates, const float* __
   }
 }
 
+constexpr int kMaxCodes = 1024;         // codes a range may hold for the tables
+constexpr int kMaxCodeMagnitude = 1 << 24;  // every code exact in float32
+
+// The forward's rule: the floats of the stage tables where the tables serve
+// (sa and ss one per gate block or one value; each of the acc and cell code
+// ranges ordered, within +-2^24 and at most kMaxCodes long), else 0: the
+// direct chain (quant_lstm_cell_table_plan; the wrapper's twin mirrors it).
+int table_plan(int sa_col, int ss_col, int alo, int ahi, int clo, int chi) {
+  if (sa_col != 0 || ss_col != 0) return 0;
+  const int ranges[2][2] = {{alo, ahi}, {clo, chi}};
+  for (const auto& r : ranges) {
+    if (r[0] < -kMaxCodeMagnitude || r[1] > kMaxCodeMagnitude || r[0] > r[1]) return 0;
+    if (r[1] - r[0] + 1 > kMaxCodes) return 0;
+  }
+  return table_layout(alo, ahi, clo, chi).total;
+}
+
 Bounds make_bounds(const int lohi[12]) {
   Bounds bd;
   for (int s = 0; s < 6; ++s) {
@@ -377,20 +553,72 @@ Bounds make_bounds(const int lohi[12]) {
 
 }  // namespace
 
-extern "C" int quant_lstm_cell_launch(const float* gates, const float* c, const float* sa,
-                                      const float* ss, const float* st, const float* sc,
-                                      const float* sth, const float* sh, float* h,
-                                      float* c_new, int B, int H, int sa_gate, int sa_col,
-                                      int ss_gate, int ss_col, int alo, int ahi, int slo,
-                                      int shi, int tlo, int thi, int clo, int chi, int thlo,
-                                      int thhi, int hlo, int hhi, cudaStream_t stream) {
+extern "C" int quant_lstm_cell_table_plan(int sa_gate, int sa_col, int ss_gate, int ss_col,
+                                          int alo, int ahi, int clo, int chi) {
+  (void)sa_gate;
+  (void)ss_gate;
+  return table_plan(sa_col, ss_col, alo, ahi, clo, chi);
+}
+
+extern "C" int quant_lstm_cell_tables_launch(const float* sa, const float* ss, const float* st,
+                                             const float* sc, const float* sth, float* tables,
+                                             int sa_gate, int sa_col, int ss_gate, int ss_col,
+                                             int alo, int ahi, int slo, int shi, int tlo,
+                                             int thi, int clo, int chi, int thlo, int thhi,
+                                             int hlo, int hhi, cudaStream_t stream) {
   const int lohi[12] = {alo, ahi, slo, shi, tlo, thi, clo, chi, thlo, thhi, hlo, hhi};
+  if (quant_lstm_cell_table_plan(sa_gate, sa_col, ss_gate, ss_col, alo, ahi, clo, chi) == 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TableLayout tl = table_layout(alo, ahi, clo, chi);
+  const Strides str = {sa_gate, sa_col, ss_gate, ss_col};
+  quant_lstm_cell_tables_kernel<<<cdiv(tl.total, kThreads), kThreads, 0, stream>>>(
+      sa, ss, st, sc, sth, tables, str, make_bounds(lohi), alo, clo, tl);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward. xp: the gates (float32, B x 4H contiguous) where p is null;
+// else the first addend (float32, or bf16 where xp_bf16, rows xp_ld
+// elements apart) of gates = xp + p, which are written to `gates`. tables:
+// null for the direct chain, else the stage tables (16-byte aligned), which
+// the rule must allow.
+extern "C" int quant_lstm_cell_launch(const void* xp, const float* p, const float* c,
+                                      const float* sa, const float* ss, const float* st,
+                                      const float* sc, const float* sth, const float* sh,
+                                      const float* tables, float* gates, float* h,
+                                      float* c_new, int B, int H, int xp_ld, int xp_bf16,
+                                      int sa_gate, int sa_col, int ss_gate, int ss_col, int alo,
+                                      int ahi, int slo, int shi, int tlo, int thi, int clo,
+                                      int chi, int thlo, int thhi, int hlo, int hhi,
+                                      cudaStream_t stream) {
+  const int lohi[12] = {alo, ahi, slo, shi, tlo, thi, clo, chi, thlo, thhi, hlo, hhi};
+  const int mode = p == nullptr ? kGates : xp_bf16 ? kAddBF16 : kAddF32;
+  if ((p == nullptr && (xp_bf16 || gates != nullptr)) || (p != nullptr && gates == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool use_tables = tables != nullptr;
+  if (use_tables &&
+      (quant_lstm_cell_table_plan(sa_gate, sa_col, ss_gate, ss_col, alo, ahi, clo, chi) == 0 ||
+       reinterpret_cast<uintptr_t>(tables) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n = static_cast<int64_t>(B) * H;
   if (n == 0) return 0;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   const Strides str = {sa_gate, sa_col, ss_gate, ss_col};
-  quant_lstm_cell_kernel<<<blocks, kThreads, 0, stream>>>(gates, c, sa, ss, st, sc, sth, sh, h,
-                                                          c_new, B, H, str, make_bounds(lohi));
+  const TableLayout tl = use_tables ? table_layout(alo, ahi, clo, chi) : TableLayout{};
+  const int smem = tl.total * 4;
+  auto run = [&](auto kernel) {
+    kernel<<<blocks, kThreads, smem, stream>>>(xp, p, c, sa, ss, st, sc, sth, sh, tables, gates,
+                                               h, c_new, B, H, static_cast<int64_t>(xp_ld), str,
+                                               make_bounds(lohi), alo, clo, tl);
+  };
+  if (use_tables) {
+    if (mode == kGates) run(quant_lstm_cell_kernel<true, kGates>);
+    else if (mode == kAddF32) run(quant_lstm_cell_kernel<true, kAddF32>);
+    else run(quant_lstm_cell_kernel<true, kAddBF16>);
+  } else {
+    if (mode == kGates) run(quant_lstm_cell_kernel<false, kGates>);
+    else if (mode == kAddF32) run(quant_lstm_cell_kernel<false, kAddF32>);
+    else run(quant_lstm_cell_kernel<false, kAddBF16>);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,6 +39,8 @@ from brevitas_tpu_torch.kernels.lstm_cell import (
     quant_lstm_cell_backward,
     quant_lstm_cell_backward_reference,
     quant_lstm_cell_reference,
+    quant_lstm_cell_tables,
+    quant_lstm_cell_tables_reference,
 )
 
 __all__ = ["int8_matmul", "int8_matmul_reference", "int4_matmul",
@@ -49,5 +51,6 @@ __all__ = ["int8_matmul", "int8_matmul_reference", "int4_matmul",
            "int4kv_decode_attention", "int4kv_decode_attention_reference",
            "pack_kv_halves", "unpack_kv_halves", "update_kv_packed", "quant_lstm_cell",
            "quant_lstm_cell_reference", "quant_lstm_cell_backward",
-           "quant_lstm_cell_backward_reference", "fake_quant", "fake_quant_reference",
+           "quant_lstm_cell_backward_reference", "quant_lstm_cell_tables",
+           "quant_lstm_cell_tables_reference", "fake_quant", "fake_quant_reference",
            "fake_quant_backward", "fake_quant_backward_reference"]

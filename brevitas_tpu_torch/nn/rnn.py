@@ -23,9 +23,12 @@ paths run a step:
   constant bit width, round-to-nearest and the zeroing clamp in float32 (the
   configurations the JAX package sends to its Pallas cell), the step calls
   ``kernels.quant_lstm_cell``: the CUDA forward and backward kernels on the
-  card, their plain version on the CPU. Other configurations run the plain
-  fused step. The choice is made from the configuration, never from a
-  failure.
+  card, their plain version on the CPU. The kernel takes the step's input
+  projection and recurrent product as two addends and forms their sum
+  itself, and reads the stages after sigmoid and tanh from tables built
+  once per layer forward (``kernels.quant_lstm_cell_tables``) where the
+  scales and bit widths allow. Other configurations run the plain fused
+  step. The choice is made from the configuration, never from a failure.
 
 sigmoid and tanh are formed in float64 and rounded once on every path
 (``ops.sigmoid_f64``, ``ops.tanh_f64``), so the paths agree with each other
@@ -50,7 +53,12 @@ import torch
 from torch import nn
 
 from brevitas_tpu_torch.core import quant as Qf
-from brevitas_tpu_torch.kernels.lstm_cell import cell_step, gate_columns, quant_lstm_cell
+from brevitas_tpu_torch.kernels.lstm_cell import (
+    cell_step,
+    gate_columns,
+    quant_lstm_cell,
+    quant_lstm_cell_tables,
+)
 from brevitas_tpu_torch.nn.linear import compute_dtype_matmul
 from brevitas_tpu_torch.ops import round_ste, sigmoid_f64, tanh_f64, tensor_clamp, tensor_clamp_ste
 from brevitas_tpu_torch.ops.numeric import max_int, min_int
@@ -232,9 +240,15 @@ class _QuantLSTMLayer(nn.Module):
         kernel_args = self._kernel_cell_args(stages, c.dtype)
         if kernel_args is not None:
             sa, ss, (st, sc, sth, sh), bounds = kernel_args
+            # the stage tables once a layer forward (the scales move only
+            # between optimizer steps); None where the direct chain serves
+            # and on the CPU
+            tables = quant_lstm_cell_tables(sa, ss, st, sc, sth, bounds)
 
-            def step(gates, c):
-                return quant_lstm_cell(gates, c, sa, ss, st, sc, sth, sh, bounds)
+            def step(xp_t, p, c):
+                # the kernel forms xp_t + p itself (no add or cast launch)
+                return quant_lstm_cell(xp_t, c, sa, ss, st, sc, sth, sh, bounds, recurrent=p,
+                                       tables=tables)
         else:
             h_dim = self.hidden_size
             plain = dict(stages)
@@ -242,8 +256,9 @@ class _QuantLSTMLayer(nn.Module):
                 if plain[k] is not None:
                     plain[k] = (gate_columns(plain[k][0], n, h_dim), *plain[k][1:])
 
-            def step(gates, c):
-                return cell_step(gates, c, lambda x, k: self._fused_quant(x, plain[STAGES[k]]))
+            def step(xp_t, p, c):
+                return cell_step(xp_t.to(c.dtype) + p, c,
+                                 lambda x, k: self._fused_quant(x, plain[STAGES[k]]))
         if qw_hh.dtype == c.dtype:
             def gemm(h):
                 return h @ qw_hh
@@ -252,7 +267,7 @@ class _QuantLSTMLayer(nn.Module):
                 return compute_dtype_matmul(h, qw_hh, qw_hh.dtype)
         ys = []
         for xp_t in x_proj.unbind(1):
-            h, c = step(xp_t.to(c.dtype) + gemm(h), c)
+            h, c = step(xp_t, gemm(h), c)
             ys.append(h)
         return torch.stack(ys, dim=1), (h, c)
 

@@ -69,14 +69,22 @@ Phases; any failure exits non-zero and prints no result:
              packed step. The model it timed decodes again on the card; its
              tokens equal the served ones, and its logits of all 32
              sequences over the 128 steps are checked as in 8.
-11. lstm_kernels - quant_lstm_cell's forward and backward kernels at the
-             QuantLSTM QAT leg's shape (B 64, H 512) and an unaligned one (B 3,
-             H 100), gates and scales drawn so that every clamp is reached:
-             forward bit for bit against the plain version on the card;
-             dgates and dc within rtol 1e-5, atol 1e-6 of the plain version's
-             autograd; each scale gradient within 1e-5 * sum |term| of the
-             float64 sum of the plain version's per-element terms, and the
-             same bits on a second run. Times as above.
+11. lstm_kernels - quant_lstm_cell's forward, its stage-table build and
+             its backward at the QuantLSTM QAT leg's shape (B 64, H 512),
+             unaligned ones ((3, 100), (3, 101)) and (1024, 512), with sa and
+             ss per column, per gate block and one value, gates and scales
+             drawn so that every clamp is reached: the table rule in Python
+             equal to the launcher's; the tables bit for bit against the
+             plain tables; the forward bit for bit against the plain version
+             on the direct chain and on the tables, and with two addends (a
+             strided float32 step of a projection, bf16 contiguous and
+             strided: the kernel's gates equal torch's add, h and c' the
+             plain version on it, the gradients to xp and p those through
+             .to() and +); dgates and dc within rtol 1e-5, atol 1e-6 of the
+             plain version's autograd; each scale gradient within 1e-5 * sum
+             |term| of the float64 sum of the plain version's per-element
+             terms, and the same bits on a second run. Times as above, each
+             path apart and the table build.
 11b. fake_quant_kernels - fake_quant's forward and backward kernels at the
              shapes of an lfc_qat step ((1024, 784), (1024, 1024), (10, 1024))
              and an unaligned (3, 5, 7), zero points 0 and 3, both clamp
@@ -92,7 +100,9 @@ Phases; any failure exits non-zero and prints no result:
              cell kernel launch), convert_runtime_stats_to_parameter, then a
              warm-up and 5 timed Adam steps (lr 1e-3, every parameter, the
              learned scales included) at batch 64, sequence 64: 128 forward
-             and 128 backward cell launches a step. A copy made before the
+             and 128 backward cell launches and 2 table builds a step, and
+             (from a profile of one forward) no per-step gate add or bf16
+             cast of the projection. A copy made before the
              first step runs the same steps through the module cell
              (fused_cell = False): the first step's loss the same bits and
              its weight gradients within 1e-4, each step's loss within 1e-3,
@@ -948,6 +958,7 @@ def _launch_counts():
             "int4kv_decode_attention": K.int4kv_decode_attention.launches,
             "quant_lstm_cell": K.quant_lstm_cell.launches,
             "quant_lstm_cell_backward": K.quant_lstm_cell_backward.launches,
+            "quant_lstm_cell_tables": K.quant_lstm_cell_tables.launches,
             "fake_quant": K.fake_quant.launches,
             "fake_quant_backward": K.fake_quant_backward.launches}
 
@@ -1317,10 +1328,25 @@ LSTM_LR = 1e-3
 # 256-thread blocks (101 also off the backward's 4 columns a CTA), and a
 # batch past a backward CTA's 64 row lanes (each thread takes 16 rows)
 LSTM_KERNEL_SHAPES = [(64, 512), (3, 100), (3, 101), (1024, 512)]
-# how sa and ss come: one per column (4H, 3H), one per gate block (4, 3: the
-# leg's per-tensor gate quantizers, as QuantLSTM passes them), or one value;
-# every form at the leg's shape, per column elsewhere
+# how sa and ss come: one per column (4H, 3H: the forward's direct chain),
+# one per gate block (4, 3: the leg's per-tensor gate quantizers, as
+# QuantLSTM passes them) or one value (both also on the stage tables);
+# every form at every shape
 LSTM_SCALE_FORMS = ("column", "gate", "one")
+# the forward's table rule, C against Python: (sa_gate, sa_col, ss_gate,
+# ss_col, acc lo, hi, cell lo, hi) at every stride form and the code-range
+# limits (1024 codes, +-2^24, ordered)
+LSTM_TABLE_PLAN_CASES = [
+    (1, 0, 1, 0, -128, 127, -128, 127), (0, 0, 0, 0, -128, 127, -128, 127),
+    (0, 0, 1, 0, 0, 0, 0, 0), (512, 1, 1, 0, -128, 127, -128, 127),
+    (1, 0, 512, 1, -128, 127, -128, 127), (1, 0, 1, 0, -512, 511, -8, 7),
+    (1, 0, 1, 0, -512, 512, -8, 7), (1, 0, 1, 0, -8, 7, 0, 1024), (1, 0, 1, 0, 5, 4, -8, 7),
+    (1, 0, 1, 0, 2**24 - 9, 2**24, -8, 7), (1, 0, 1, 0, -8, 7, 2**24 - 9, 2**24 + 1),
+    (1, 0, 1, 0, -2**24 - 1, -2**24 + 8, -8, 7)]
+# bytes a (b, j) element of the forward: the one-tensor form reads gates and
+# c and writes h and c'; the two-addend form reads xp (float32 or bf16), p
+# and c and writes gates, h and c'
+LSTM_FWD_BYTES = {"direct": 28, "tables": 28, "add_f32": 60, "add_bf16": 52}
 # the leg's six stages (acc, sigmoid, tanh_g, cell, tanh_h, hidden): int8,
 # the sigmoid uint8
 LSTM_BOUNDS = ((-128, 127), (0, 255), (-128, 127), (-128, 127), (-128, 127), (-128, 127))
@@ -1345,7 +1371,12 @@ def lstm_cell_inputs(dev, b: int, h: int, seed: int, form: str = "column"):
     that every stage's clamp is reached: |gates| beyond 127 * sa, 255 * ss
     and 127 * st below 1, |f c + i g| beyond 127 * sc, 127 * sth below 1,
     127 * sh below the largest o * th. ``form``: how many values sa and ss
-    have (LSTM_SCALE_FORMS)."""
+    have (LSTM_SCALE_FORMS). With few values (one per gate block, or one)
+    every clamp is reached at any shape: sigmoid(127 sa) > 255 ss, and
+    element (0, 0) has every gate and its state beyond their clamps, so
+    that o th > 127 sh there; and row 1's gates lie within 3 ulps of a
+    rounding tie of the acc stage (gates / sa = k + 1/2), where a code
+    formed otherwise than by the plain version's division would differ."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def uniform(shape, lo, hi):
@@ -1354,23 +1385,107 @@ def lstm_cell_inputs(dev, b: int, h: int, seed: int, form: str = "column"):
     gates = torch.randn((b, 4 * h), generator=g, device=dev) * 4
     c = torch.randn((b, h), generator=g, device=dev) * 2
     n_sa, n_ss = {"column": (4 * h, 3 * h), "gate": (4, 3), "one": (1, 1)}[form]
+    few = n_ss <= 3
     # a few ss all below 1 / 255: the sigmoid's top clamp is reached
-    scales = (uniform(n_sa, 0.01, 0.05),
-              uniform(n_ss, 0.002, 0.006 if n_ss > 3 else 0.0038),
+    scales = (uniform(n_sa, 0.03 if few else 0.01, 0.05),
+              uniform(n_ss, 0.003 if few else 0.002, 0.0038 if few else 0.006),
               *(torch.tensor(v, device=dev) for v in (0.005, 0.015, 0.005, 0.003)))
+    if few:
+        gates[0, ::h] = 1e3
+        c[0, 0] = 10.0
+        if b > 1:
+            cols = torch.arange(4 * h, device=dev)
+            tie = (cols % 201 - 100 + 0.5) * scales[0].repeat_interleave(4 * h // n_sa)
+            ulps = cols % 7 - 3
+            for step in range(3):
+                tie = torch.where(ulps > step, torch.nextafter(tie, tie + 1), tie)
+                tie = torch.where(-ulps > step, torch.nextafter(tie, tie - 1), tie)
+            gates[1] = tie
     dh = torch.randn((b, h), generator=g, device=dev)
     dcn = torch.randn((b, h), generator=g, device=dev)
     return gates, c, scales, dh, dcn
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal to the bit (the sign of zero counts), NaN where NaN."""
+    nan = torch.isnan(a)
+    return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+            and torch.equal(torch.where(nan, 0.0, a).view(torch.int32),
+                            torch.where(nan, 0.0, b).view(torch.int32)))
+
+
+def check_table_plan(planner) -> None:
+    """The forward's table rule in Python against the launcher's."""
+    from brevitas_tpu_torch.kernels.lstm_cell import quant_lstm_cell_table_plan
+
+    for case in LSTM_TABLE_PLAN_CASES:
+        if quant_lstm_cell_table_plan(*case) != planner(*case):
+            raise AssertionError(f"quant_lstm_cell_table_plan{case} = "
+                                 f"{quant_lstm_cell_table_plan(*case)}, the launcher "
+                                 f"{planner(*case)}")
+    print(f"[lstm_kernels] the table rule in Python equals the launcher's at "
+          f"{len(LSTM_TABLE_PLAN_CASES)} cases")
+
+
+def check_two_addend(args, tables, g, what: str) -> dict:
+    """The two-addend forward (gates = xp + p, formed and written by the
+    kernel) on a strided float32 step of a (B, 3, 4H) projection, on bf16
+    copies of it (contiguous and strided), against torch's add and the plain
+    version on it: the gates, h and c' bit for bit. Its gradients to xp (in
+    xp's dtype) and p against the one-tensor kernel's through ``.to()`` and
+    ``+``, bit for bit. Returns the addends for timing."""
+    from brevitas_tpu_torch.kernels import quant_lstm_cell, quant_lstm_cell_reference
+    from brevitas_tpu_torch.kernels.lstm_cell import _forward_kernel
+
+    gates, c, *scales = args
+    b, n = gates.shape
+    x_all = torch.randn((b, 3, n), generator=g, device=gates.device) * 3
+    p = gates - x_all[:, 1]
+    addends = {"add_f32": x_all.unbind(1)[1], "add_bf16": x_all[:, 1].to(torch.bfloat16),
+               "add_bf16_strided": x_all.to(torch.bfloat16).unbind(1)[1]}
+    for name, xp in addends.items():
+        with torch.no_grad():
+            got = _forward_kernel(xp, p, c, *scales, LSTM_BOUNDS, tables)
+            want_g = xp.to(torch.float32) + p
+            want = (want_g, *quant_lstm_cell_reference(want_g, c, *scales, LSTM_BOUNDS))
+        torch.cuda.synchronize()
+        for part, x, y in zip(("gates", "h", "c_new"), got, want):
+            if not same_bits(x, y):
+                raise AssertionError(f"quant_lstm_cell two addends ({name}) {part} at {what}: "
+                                     f"{int((x != y).sum())} of {y.numel()} differ")
+    dh, dcn = (torch.randn(c.shape, generator=g, device=gates.device) for _ in range(2))
+    for name in ("add_f32", "add_bf16_strided"):
+        runs = []
+        for two in (True, False):
+            leaf = x_all.to(torch.bfloat16) if name == "add_bf16_strided" else x_all.clone()
+            leaf.requires_grad_()
+            pl = p.clone().requires_grad_()
+            xp = leaf.unbind(1)[1]
+            if two:
+                out = quant_lstm_cell(xp, c, *scales, LSTM_BOUNDS, recurrent=pl, tables=tables)
+            else:
+                out = quant_lstm_cell(xp.to(torch.float32) + pl, c, *scales, LSTM_BOUNDS,
+                                      tables=tables)
+            torch.autograd.backward(out, (dh, dcn))
+            runs.append((leaf.grad.float(), pl.grad))
+        torch.cuda.synchronize()
+        if not all(same_bits(x, y) for x, y in zip(*runs)):
+            raise AssertionError(f"quant_lstm_cell two addends ({name}): gradients differ from "
+                                 f"the one-tensor kernel's through .to() and + at {what}")
+    return {"add_f32": addends["add_f32"], "add_bf16": addends["add_bf16_strided"], "p": p}
+
+
 def phase_lstm_kernels(dev, vector_peaks, bw) -> list:
-    """quant_lstm_cell's forward and backward kernels against their plain
-    versions on the card, and timed. Returns one row per (kernel, shape)."""
+    """quant_lstm_cell's forward (direct chain, stage tables, two addends),
+    its table build and its backward against their plain versions on the
+    card, and timed. Returns one row per (kernel, path, shape, scales)."""
     from brevitas_tpu_torch.kernels import (
         quant_lstm_cell,
         quant_lstm_cell_backward,
         quant_lstm_cell_backward_reference,
         quant_lstm_cell_reference,
+        quant_lstm_cell_tables,
+        quant_lstm_cell_tables_reference,
     )
     from brevitas_tpu_torch.kernels import _launch
     from brevitas_tpu_torch.kernels.lstm_cell import (
@@ -1381,10 +1496,10 @@ def phase_lstm_kernels(dev, vector_peaks, bw) -> list:
     f32_peak, f64_peak = vector_peaks
     rows = []
     planner = _launch.bind_ints("quant_lstm_cell", "quant_lstm_cell_backward_plan", 1)
-    print("[lstm_kernels] kernel B H scales | kernel_ms plain_ms bound_ms bound_by | "
+    check_table_plan(_launch.bind_ints("quant_lstm_cell", "quant_lstm_cell_table_plan", 8))
+    print("[lstm_kernels] kernel path B H scales | kernel_ms plain_ms bound_ms bound_by | "
           "max_abs_err | checks (no PyTorch call computes this function: library_ms null)")
-    cases = [(b, h, form) for b, h in LSTM_KERNEL_SHAPES
-             for form in (LSTM_SCALE_FORMS if (b, h) == (64, 512) else ("column",))]
+    cases = [(b, h, form) for b, h in LSTM_KERNEL_SHAPES for form in LSTM_SCALE_FORMS]
     for b, h, form in cases:
         if quant_lstm_cell_backward_plan(b) != planner(b):
             raise AssertionError(f"quant_lstm_cell_backward_plan({b}) = "
@@ -1398,15 +1513,35 @@ def phase_lstm_kernels(dev, vector_peaks, bw) -> list:
                   for x, (lo, hi) in zip(pre, LSTM_BOUNDS)]
         if min(shares) == 0:
             raise AssertionError(f"lstm_kernels: a clamp is never reached at {(b, h)}: {shares}")
+        # the stage tables: None for scales per column (the direct chain)
+        built = quant_lstm_cell_tables.launches
+        tables = quant_lstm_cell_tables(*scales[:5], LSTM_BOUNDS)
+        if (tables is None) != (form == "column"):
+            raise AssertionError(f"lstm_kernels: tables {tables is not None} at {form}")
+        if tables is not None:
+            want_tables = quant_lstm_cell_tables_reference(*scales[:5], LSTM_BOUNDS)
+            torch.cuda.synchronize()
+            if quant_lstm_cell_tables.launches - built != 1:
+                raise AssertionError("quant_lstm_cell_tables: not one launch a call")
+            if not same_bits(tables, want_tables):
+                raise AssertionError(f"quant_lstm_cell_tables differ from the plain tables at "
+                                     f"{form}: {int((tables != want_tables).sum())} slots")
         with torch.no_grad():
-            h_k, c_k = quant_lstm_cell(*args, LSTM_BOUNDS)
             h_r, c_r = quant_lstm_cell_reference(*args, LSTM_BOUNDS)
+            paths = {"direct": quant_lstm_cell(*args, LSTM_BOUNDS)}
+            if tables is not None:
+                paths["tables"] = quant_lstm_cell(*args, LSTM_BOUNDS, tables=tables)
         torch.cuda.synchronize()
-        if not (torch.equal(h_k, h_r) and torch.equal(c_k, c_r)):
-            raise AssertionError(
-                f"quant_lstm_cell differs from its plain version at {(b, h)} {form}: h "
-                f"{int((h_k != h_r).sum())}, c_new {int((c_k != c_r).sum())} of {h_r.numel()}")
-        fwd_err = max(float((h_k - h_r).abs().max()), float((c_k - c_r).abs().max()))
+        for path, (h_k, c_k) in paths.items():
+            if not (torch.equal(h_k, h_r) and torch.equal(c_k, c_r)):
+                raise AssertionError(
+                    f"quant_lstm_cell ({path}) differs from its plain version at {(b, h)} "
+                    f"{form}: h {int((h_k != h_r).sum())}, c_new {int((c_k != c_r).sum())} of "
+                    f"{h_r.numel()}")
+        fwd_err = max(max(float((h_k - h_r).abs().max()), float((c_k - c_r).abs().max()))
+                      for h_k, c_k in paths.values())
+        g = torch.Generator(device=dev).manual_seed(b * h + 1)
+        addends = check_two_addend(args, tables, g, f"{(b, h)} {form}")
 
         launched = quant_lstm_cell_backward.launches
         got = quant_lstm_cell_backward(*args, dh, dcn, LSTM_BOUNDS)
@@ -1444,36 +1579,67 @@ def phase_lstm_kernels(dev, vector_peaks, bw) -> list:
             if not bool((dev_k <= LSTM_SCALE_SUM_RTOL * mass).all()):
                 raise AssertionError(f"quant_lstm_cell_backward {name} at {(b, h)} {form}: "
                                      f"|kernel - f64| / sum|term| = {ratio:.3g}")
-        print(f"[lstm_kernels] ({b}, {h}) scales per {form}, backward "
-              f"{quant_lstm_cell_backward_plan(b)} rows a thread: forward "
-              f"bit for bit; backward dgates/dc max |diff| "
-              f"{bwd_err:.3g}, scale sums max |kernel - f64| / sum|term| {worst:.3g} (plain "
-              f"version {worst_plain:.3g}), same bits on a second run; clamped shares per "
-              f"stage {[round(x, 4) for x in shares]}")
+        print(f"[lstm_kernels] ({b}, {h}) scales per {form}: forward bit for bit on "
+              f"{' and '.join(paths)} and with two addends (strided float32, bf16: gates, h, "
+              f"c', gradients){', tables bit for bit' if tables is not None else ''}; "
+              f"backward {quant_lstm_cell_backward_plan(b)} rows a thread, dgates/dc max "
+              f"|diff| {bwd_err:.3g}, scale sums max |kernel - f64| / sum|term| {worst:.3g} "
+              f"(plain version {worst_plain:.3g}), same bits on a second run; clamped shares "
+              f"per stage {[round(x, 4) for x in shares]}")
 
+        p = addends["p"]
+        times = {}
         with torch.no_grad():
-            t_fk = cuda_ms(lambda: quant_lstm_cell(*args, LSTM_BOUNDS))
-            t_fp = cuda_ms(lambda: quant_lstm_cell_reference(*args, LSTM_BOUNDS))
+            times["direct"] = (cuda_ms(lambda: quant_lstm_cell(*args, LSTM_BOUNDS)),
+                               cuda_ms(lambda: quant_lstm_cell_reference(*args, LSTM_BOUNDS)))
+            if tables is not None:
+                times["tables"] = (
+                    cuda_ms(lambda: quant_lstm_cell(*args, LSTM_BOUNDS, tables=tables)),
+                    times["direct"][1])
+            for path in ("add_f32", "add_bf16"):
+                xp = addends[path]
+                times[path] = (
+                    cuda_ms(lambda: quant_lstm_cell(xp, c, *scales, LSTM_BOUNDS, recurrent=p,
+                                                    tables=tables)),
+                    cuda_ms(lambda: quant_lstm_cell_reference(xp.to(torch.float32) + p, c,
+                                                              *scales, LSTM_BOUNDS)))
+            if tables is not None:
+                times["build"] = (
+                    cuda_ms(lambda: quant_lstm_cell_tables(*scales[:5], LSTM_BOUNDS)),
+                    cuda_ms(lambda: quant_lstm_cell_tables_reference(*scales[:5], LSTM_BOUNDS)))
         t_bk = cuda_ms(lambda: quant_lstm_cell_backward(*args, dh, dcn, LSTM_BOUNDS))
         t_bp = cuda_ms(lambda: quant_lstm_cell_backward_reference(*args, dh, dcn, LSTM_BOUNDS))
         el, n_scales = b * h, scales[0].numel() + scales[1].numel() + 4
         # bytes: each input read once, each output written once; operations
-        # per element as written (forward: 7 stages of divide, round, multiply
-        # and 4 products or sums in float32, 3 sigmoids of exp, add and
-        # reciprocal and 2 tanh in float64; the backward recomputes it and
-        # adds about as many again)
-        for name, t_k, t_p, nbytes, n32, n64, err in (
-                ("quant_lstm_cell", t_fk, t_fp, 4 * (7 * el + n_scales), 25, 11, fwd_err),
-                ("quant_lstm_cell_backward", t_bk, t_bp, 4 * (12 * el + 2 * n_scales), 70, 22,
-                 bwd_err)):
+        # per element as written (the direct chain: 7 stages of divide,
+        # round, multiply and 4 products or sums in float32, 3 sigmoids of
+        # exp, add and reciprocal and 2 tanh in float64; with the tables 6
+        # stages' divide, round and clamp, 3 products and a sum, and no
+        # float64; the add one more; the backward recomputes the direct
+        # chain and adds about as many again). The table build: its slots
+        # written, each formed as the direct chain forms its stage.
+        n_slots = tables.numel() if tables is not None else 0
+        items = [("quant_lstm_cell", path, t_k, t_p,
+                  LSTM_FWD_BYTES[path] * el + 4 * n_scales
+                  + (4 * n_slots if path != "direct" else 0),
+                  26 if path.startswith("add") else 25,
+                  11 if path == "direct" or tables is None else 0, fwd_err)
+                 for path, (t_k, t_p) in times.items() if path != "build"]
+        if tables is not None:
+            items.append(("quant_lstm_cell_tables", "build", *times["build"],
+                          4 * (n_slots + n_scales), 4 * n_slots / max(el, 1),
+                          3 * n_slots / max(el, 1), 0.0))
+        items.append(("quant_lstm_cell_backward", "direct", t_bk, t_bp,
+                      4 * (12 * el + 2 * n_scales), 70, 22, bwd_err))
+        for name, path, t_k, t_p, nbytes, n32, n64, err in items:
             t_bytes = nbytes / bw * 1e3
             t_ops = el * (n32 / f32_peak + n64 / f64_peak) * 1e3
             t_b, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-            rows.append(dict(kernel=name, b=b, h=h, scales=form, ms=t_k, plain_ms=t_p,
-                             bound_ms=t_b, bound_by=by, err=err, bytes=nbytes,
+            rows.append(dict(kernel=name, path=path, b=b, h=h, scales=form, ms=t_k,
+                             plain_ms=t_p, bound_ms=t_b, bound_by=by, err=err, bytes=nbytes,
                              scale_sum_ratio=worst))
-            print(f"[lstm_kernels] {name} {b} {h} {form} | {t_k:.4f} {t_p:.4f} {t_b:.3g} "
-                  f"{by} | {err:.3g}")
+            print(f"[lstm_kernels] {name} {path} {b} {h} {form} | {t_k:.5f} {t_p:.4f} "
+                  f"{t_b:.3g} {by} | {err:.3g}")
     return rows
 
 
@@ -1570,16 +1736,21 @@ def lstm_train_step(model):
 @contextlib.contextmanager
 def plain_lstm_cell():
     """QuantLSTM's fused step on the cell's plain version (autograd through
-    the plain chain) instead of the cell kernels."""
+    the plain chain, on ``xp.float() + p``) instead of the cell kernels, and
+    no stage tables."""
     from brevitas_tpu_torch.kernels import quant_lstm_cell_reference
     from brevitas_tpu_torch.nn import rnn
 
-    saved = rnn.quant_lstm_cell
-    rnn.quant_lstm_cell = quant_lstm_cell_reference
+    def plain(xp, c, *args, recurrent=None, tables=None):
+        gates = xp if recurrent is None else xp.to(torch.float32) + recurrent
+        return quant_lstm_cell_reference(gates, c, *args)
+
+    saved = rnn.quant_lstm_cell, rnn.quant_lstm_cell_tables
+    rnn.quant_lstm_cell, rnn.quant_lstm_cell_tables = plain, lambda *args: None
     try:
         yield
     finally:
-        rnn.quant_lstm_cell = saved
+        rnn.quant_lstm_cell, rnn.quant_lstm_cell_tables = saved
 
 
 class PlainRun(torch.nn.Module):
@@ -1703,10 +1874,12 @@ def phase_lstm_qat(dev, bf16: bool = False) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         counts = _launch_counts()
-        # the cell kernels once a time step and layer; fake_quant for each
-        # layer's input quantizer and 4 + 4 gate-weight quantizers, forward
-        # and backward (each has a learned or a weight-statistics scale)
-        want = {k: launches_per_step if k.startswith("quant_lstm_cell")
+        # the cell kernels once a time step and layer, the stage tables once
+        # a layer; fake_quant for each layer's input quantizer and 4 + 4
+        # gate-weight quantizers, forward and backward (each has a learned or
+        # a weight-statistics scale)
+        want = {k: LSTM_LEG["layers"] if k == "quant_lstm_cell_tables"
+                else launches_per_step if k.startswith("quant_lstm_cell")
                 else LSTM_FQ_PER_STEP if k.startswith("fake_quant") else 0 for k in counts}
         if counts != want:
             raise AssertionError(f"{what} step {i}: launches {counts}, expected {want}")
@@ -1769,7 +1942,39 @@ def phase_lstm_qat(dev, bf16: bool = False) -> dict:
     out["profile"] = profile_steps(one_step, what, "training step", n=2, grad=True)
     print(f"[{what}] device idle share {out['profile']['idle_share']:.3f}, "
           f"{out['compute_dtype']} operands, on {CARD[0]}")
+    # no gate add (and in bf16 no cast of xp) a time step: the cell kernel
+    # forms xp + p. Torch's elementwise adds and dtype copies in one forward,
+    # from the profile: the per-step add made layers x seq adds, and in bf16
+    # each step also made 4 copies (h and W_hh rounded to bf16 and back in
+    # the product, and xp's cast)
+    with torch.no_grad():
+        kernels = device_kernel_counts(lambda: model(xs[0]))
+    adds = sum(n for k, n in kernels.items() if "CUDAFunctor_add" in k)
+    copies = sum(n for k, n in kernels.items() if "copy_kernel" in k)
+    per_step = LSTM_LEG["layers"] * t
+    print(f"[{what}] one forward: {sum(kernels.values())} device kernels, {adds} elementwise "
+          f"adds, {copies} dtype copies, over {per_step} cell steps")
+    if adds >= per_step or (bf16 and copies >= 4 * per_step):
+        raise AssertionError(f"{what}: a gate add or xp cast still runs a step: {adds} adds, "
+                             f"{copies} copies a forward")
+    out["forward_kernels"] = {"total": sum(kernels.values()), "adds": adds, "copies": copies}
     return out
+
+
+def device_kernel_counts(fn) -> dict:
+    """Launches of each device kernel (by name) in one call of ``fn``, from
+    torch.profiler, after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("Activity Buffer")}
 
 
 # fake_quant at the shapes of one lfc_qat step (lfc(4, 4, 4), batch 1024):
@@ -2082,12 +2287,13 @@ def phase_bnn_pynq(dev) -> dict:
     return {"val_acc": acc, "launches": counts}
 
 
-def lstm_summary(rows, name, lstm, replaces):
-    """The cell kernel's row at the leg's shape with the leg's scales (one
-    per gate block); its launches over the QAT phases' warm-ups and timed
-    steps (float32 and bf16 operands)."""
+def lstm_summary(rows, name, lstm, replaces, path):
+    """An LSTM cell kernel's row at the leg's shape with the leg's scales
+    (one per gate block) on the main path's ``path`` (the forward: two
+    addends, a float32 xp, the stage tables); its launches over the QAT
+    phases' warm-ups and timed steps (float32 and bf16 operands)."""
     row = next(r for r in rows if r["kernel"] == name and (r["b"], r["h"]) == (64, 512)
-               and r["scales"] == "gate")
+               and r["scales"] == "gate" and r["path"] == path)
     return {
         "name": name, "route": "cuda", "source": "brevitas_tpu_torch/csrc/quant_lstm_cell.cu",
         "replaces": replaces, "launches": sum(run["launches"][name] for run in lstm.values()),
@@ -2096,9 +2302,9 @@ def lstm_summary(rows, name, lstm, replaces):
         "bound_by": row["bound_by"], "library_ms": None,
         "library_note": "no PyTorch call computes this function (six fake-quant stages "
                         "around the LSTM nonlinearities)",
-        "per": "one launch at B 64, H 512, sa and ss one per gate block (the leg's)",
-        "launches_per_step": lstm["float32"]["launches_per_step"],
-        "by_shape_scales": [{k: r[k] for k in ("b", "h", "scales", "ms", "plain_ms",
+        "per": f"one launch at B 64, H 512, sa and ss one per gate block (the leg's), {path}",
+        "launches_per_step": lstm["float32"]["launches"][name] // (1 + LSTM_TIMED_STEPS),
+        "by_shape_scales": [{k: r[k] for k in ("path", "b", "h", "scales", "ms", "plain_ms",
                                                "bound_ms", "bound_by", "err")}
                             for r in rows if r["kernel"] == name],
     }
@@ -2265,9 +2471,13 @@ def main() -> int:
         prefill_attention_entry(attn_rows, prefill["launches"]["int8_attention"]
                                 + w4a8_prefill["launches"]["int8_attention"]),
         decode_entry,
-        lstm_summary(lstm_rows, "quant_lstm_cell", lstm, "brevitas_tpu/kernels/lstm_cell.py:176"),
+        lstm_summary(lstm_rows, "quant_lstm_cell", lstm, "brevitas_tpu/kernels/lstm_cell.py:176",
+                     "add_f32"),
+        lstm_summary(lstm_rows, "quant_lstm_cell_tables", lstm,
+                     "brevitas_tpu/kernels/lstm_cell.py:176 (the forward's sigmoid and tanh, "
+                     "_cell_fwd_kernel:58)", "build"),
         lstm_summary(lstm_rows, "quant_lstm_cell_backward", lstm,
-                     "brevitas_tpu/kernels/lstm_cell.py:224"),
+                     "brevitas_tpu/kernels/lstm_cell.py:224", "direct"),
         *(fake_quant_summary(fq_rows, name, sum(PATH_COUNTS[f"lfc_qat_{d}"][name]
                                                 for d in lfc_qat))
           for name in ("fake_quant", "fake_quant_backward")),

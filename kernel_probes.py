@@ -11,7 +11,8 @@ at the main path's shapes; the counted call is timed with ``chip_smoke``'s
 built and run in one process, in turns, so that they are compared on one
 card.
 
-    python kernel_probes.py lstm        # quant_lstm_cell_backward: 4- and 8-column CTAs
+    python kernel_probes.py lstm        # quant_lstm_cell: the forward (tables, direct
+                                        # chain), and the backward at 4- and 8-column CTAs
     python kernel_probes.py attention   # int8_attention: as built, and capped at 5 CTAs an SM
 
 Needs a card and nvcc; imports nothing of JAX.
@@ -108,6 +109,57 @@ def cycles(rows, a: int, b: int):
     t0 = min(r[0] for r in rows)
     v = [r[2 * b + 1] - r[2 * a + 1] for r in rows if r[2 * b] >= t0 and r[2 * a] >= t0]
     return (min(v), statistics.median(v), max(v), len(v)) if v else None
+
+
+def probe_lstm_forward() -> None:
+    """quant_lstm_cell's forward at the QuantLSTM leg's (64, 512), as the
+    leg calls it (two addends, a strided float32 xp) on the stage tables
+    (sa and ss per gate block) and on the direct chain (per column): stamps
+    at the start, after the bulk copy is issued (0), once the gates and
+    their acc codes are formed (1), once the tables have landed (2, tables
+    only) and before the stores (3)."""
+    marks = [("  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;\n"
+              "  const bool live", 0, False),
+             ("    __syncthreads();  // the barrier's initialisation", 1, False),
+             ("    mbar_wait(&bar, 0);\n", 2, True),
+             ("    c_new[i] = __fmul_rn(q_c, s_c);\n", 3, False),
+             ("    if (!live) return;\n    Cell z;\n", 1, True),
+             ("    c_new[i] = z.cn.y;\n", 3, False)]
+    lib, fn = compile_variant("lstm_fwd", stamped("quant_lstm_cell", marks),
+                              "quant_lstm_cell_launch", 13, 20)
+    lstm_cell._forward_launcher = lambda: fn
+    dev = torch.device("cuda")
+    b, h = 64, 512
+    names = ["start", "gates and acc codes", "tables landed", "chain done"]
+    for form in ("gate", "column"):
+        gates, c, scales, _, _ = cs.lstm_cell_inputs(dev, b, h, seed=b * h, form=form)
+        g = torch.Generator(device=dev).manual_seed(1)
+        xp = (torch.randn((b, 3, 4 * h), generator=g, device=dev) * 3).unbind(1)[1]
+        p = gates - xp
+        tables = lstm_cell.quant_lstm_cell_tables(*scales[:5], cs.LSTM_BOUNDS)
+        path = "tables" if tables is not None else "direct chain"
+
+        def call():
+            return lstm_cell.quant_lstm_cell(xp, c, *scales, cs.LSTM_BOUNDS, recurrent=p,
+                                             tables=tables)
+
+        with torch.no_grad():
+            t_call = cs.cuda_ms(call)
+            for _ in range(3):
+                call()
+        torch.cuda.synchronize()
+        rows = read_stamps(lib, -(-b * h // 256))
+        t0 = min(r[0] for r in rows)
+        end = max(r[6] for r in rows if r[6] >= t0)
+        print(f"== quant_lstm_cell forward {(b, h)} two addends, sa/ss per {form} ({path}): "
+              f"the counted call {t_call * 1e3:.2f} us, the kernel's span "
+              f"{(end - t0) / 1e3:.2f} us by globaltimer")
+        steps = [(0, 1), (1, 2), (2, 3)] if tables is not None else [(0, 1), (1, 3)]
+        for a, z in steps:
+            cyc = cycles(rows, a, z)
+            if cyc:
+                print(f"  cycles {names[a]} -> {names[z]}: min {cyc[0]} median {cyc[1]} max "
+                      f"{cyc[2]} ({cyc[3]} CTAs)")
 
 
 def probe_lstm() -> None:
@@ -222,6 +274,8 @@ def main() -> int:
     parser.add_argument("kernel", choices=["lstm", "attention"])
     kernel = parser.parse_args().kernel
     cs.phase_card()
+    if kernel == "lstm":
+        probe_lstm_forward()
     {"lstm": probe_lstm, "attention": probe_attention}[kernel]()
     return 0
 

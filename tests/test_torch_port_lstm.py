@@ -83,10 +83,17 @@ from brevitas_tpu_torch.kernels import (
     quant_lstm_cell_reference,
 )
 from brevitas_tpu_torch.kernels.lstm_cell import (
+    cell_step,
+    gate_columns,
     quant_lstm_cell_backward_plan,
     quant_lstm_cell_scale_terms,
+    quant_lstm_cell_table_plan,
+    quant_lstm_cell_tables,
+    quant_lstm_cell_tables_reference,
+    table_layout,
 )
 from brevitas_tpu_torch.nn import QuantLSTM as PortQuantLSTM
+from brevitas_tpu_torch.ops import tensor_clamp
 from brevitas_tpu_torch.quant import presets as port_presets
 from brevitas_tpu_torch.quant.quantizers import (
     ParameterScaling,
@@ -453,6 +460,179 @@ def test_cell_wrappers_refuse_devices_without_a_kernel():
         quant_lstm_cell(gates, c, *scales, BOUNDS)
     with pytest.raises(ValueError):
         quant_lstm_cell_backward(gates, c, *scales, c, c, BOUNDS)
+
+
+# -- the forward's stage tables and its two addends ---------------------------
+
+# 10-bit accumulators (1024 codes, the most the tables take) and a 4-bit cell
+WIDE_BOUNDS = ((-512, 511), (0, 255), (-128, 127), (-8, 7), (-128, 127), (-128, 127))
+TABLE_SCALES = {"gate": SCALE_FORMS["gate"], "one": SCALE_FORMS["one"]}
+
+
+def _table_cell_inputs(form: str, b: int = 6, h: int = 32):
+    """Gates and state drawn so that every acc and cell code range is
+    reached at both ends, with a NaN gate and a NaN state element, and the
+    code -0 at an i and a g gate (tanh keeps the sign) and at a cell state
+    (f c' of a tiny negative c, i g = 0); ``sa`` and ``ss`` per gate block
+    or one value; the four scalar scales."""
+    rng = np.random.default_rng(7)
+    gates = rng.standard_normal((b, 4 * h)).astype(np.float32) * 6
+    c = rng.standard_normal((b, h)).astype(np.float32) * 2
+    gates[0, 0] = np.nan
+    c[1, 1] = np.nan
+    gates[2, 3] = gates[3, 2 * h + 6] = -1e-4
+    gates[2, 2 * h + 5], c[2, 5] = 0.0, -1e-5
+    sa, ss = TABLE_SCALES[form]
+    return (torch.from_numpy(gates), torch.from_numpy(c), torch.from_numpy(sa),
+            torch.from_numpy(ss), *(torch.tensor(v) for v in (0.005, 0.015, 0.005, 0.003)))
+
+
+def _stages(gates, c, scales, bounds):
+    """The plain version's six stages as (code, output) pairs, and (h,
+    c_new): ``cell_step`` with each stage's fake-quant written out."""
+    h_dim = c.shape[1]
+    spread = (gate_columns(scales[0], 4, h_dim), gate_columns(scales[1], 3, h_dim), *scales[2:])
+    seen = []
+
+    def stage(x, k):
+        q = tensor_clamp(torch.round(x / spread[k]), *bounds[k])
+        seen.append((q, q * spread[k]))
+        return seen[-1][1]
+
+    return seen, cell_step(gates, c, stage)
+
+
+def _slots(q: torch.Tensor, lo: int, n: int) -> torch.Tensor:
+    """The kernel's slot of each code: q - lo; -0 at n, NaN at n + 1."""
+    slot = torch.where(torch.isnan(q), lo, q).long() - lo
+    slot = torch.where((q == 0) & torch.signbit(q), n, slot)
+    return torch.where(torch.isnan(q), n + 1, slot)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal to the bit (the sign of zero counts), NaN where NaN."""
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(torch.where(nan, 0.0, a).view(torch.int32),
+                            torch.where(nan, 0.0, b).view(torch.int32)))
+
+
+@pytest.mark.parametrize("form,bounds", [("gate", BOUNDS), ("one", BOUNDS),
+                                         ("gate", WIDE_BOUNDS)])
+def test_tables_reproduce_the_plain_stages(form, bounds):
+    """Each table, indexed by the plain version's own codes, gives that
+    version's stage outputs bit for bit: gate table k the stage after gate
+    k's sigmoid (tanh for g) at its acc code, the cell table the stage
+    after tanh(c') at the cell code; every code range reached at both ends,
+    codes -0 and NaN included."""
+    gates, c, *scales = _table_cell_inputs(form)
+    h_dim = c.shape[1]
+    seen, (h, c_new) = _stages(gates, c, scales, bounds)
+    want_h, want_c = quant_lstm_cell_reference(gates, c, *scales, bounds)
+    assert _same_bits(h, want_h) and _same_bits(c_new, want_c)
+    tables = quant_lstm_cell_tables_reference(*scales[:5], bounds)
+    (alo, ahi), (clo, chi) = bounds[0], bounds[3]
+    stride, cell_off, total = table_layout(alo, ahi, clo, chi)
+    assert tables.shape == (total,) and total % 4 == 0
+    (qa, _), (_, sig), (_, g_t), (qc, _), (_, th), _ = seen
+    for q, lo, hi in ((qa, alo, ahi), (qc, clo, chi)):
+        finite = q[~torch.isnan(q)]
+        assert finite.min() == lo and finite.max() == hi
+        assert bool(((q == 0) & torch.signbit(q)).any()) and bool(torch.isnan(q).any())
+    outs = (sig[:, :h_dim], sig[:, h_dim:2 * h_dim], g_t, sig[:, 2 * h_dim:])
+    for k, want in enumerate(outs):
+        code = qa[:, k * h_dim:(k + 1) * h_dim]
+        got = tables[k * stride:(k + 1) * stride][_slots(code, alo, ahi - alo + 1)]
+        assert _same_bits(got, want), f"gate table {k}"
+    got = tables[cell_off:cell_off + chi - clo + 3][_slots(qc, clo, chi - clo + 1)]
+    assert _same_bits(got, th), "cell table"
+
+
+@pytest.mark.parametrize("strides,acc,cell,want", [
+    ((1, 0, 1, 0), (-128, 127), (-128, 127), 1292),   # per gate block: the leg's
+    ((0, 0, 0, 0), (-128, 127), (-128, 127), 1292),   # one value each
+    ((0, 0, 1, 0), (0, 0), (0, 0), 16),               # one code each
+    ((H, 1, 1, 0), (-128, 127), (-128, 127), 0),      # sa per column
+    ((1, 0, H, 1), (-128, 127), (-128, 127), 0),      # ss per column
+    ((1, 0, 1, 0), (-512, 511), (-8, 7), 4124),       # 1024 acc codes
+    ((1, 0, 1, 0), (-512, 512), (-8, 7), 0),          # 1025
+    ((1, 0, 1, 0), (-8, 7), (0, 1024), 0),            # 1025 cell codes
+    ((1, 0, 1, 0), (5, 4), (-8, 7), 0),               # an empty range
+    ((1, 0, 1, 0), (2**24 - 9, 2**24), (-8, 7), 68),  # codes up to 2^24
+    ((1, 0, 1, 0), (-8, 7), (2**24 - 9, 2**24 + 1), 0),  # past 2^24
+])
+def test_table_plan(strides, acc, cell, want):
+    """The rule the forward's launcher applies (its Python twin; the C side
+    is checked against it on the card): the tables serve sa and ss with no
+    column stride and ordered code ranges of at most 1024 codes within
+    +-2^24; their floats are 4 (n_acc + 2) + n_cell + 2, padded to a
+    multiple of 4."""
+    got = quant_lstm_cell_table_plan(*strides, *acc, *cell)
+    assert got == want
+    if want:
+        used = 4 * (acc[1] - acc[0] + 3) + cell[1] - cell[0] + 3
+        assert got % 4 == 0 and used <= got < used + 4
+
+
+@pytest.mark.parametrize("form", ["column", "gate", "one"])
+def test_tables_wrapper_follows_the_plan(form):
+    """On a CPU tensor ``quant_lstm_cell_tables`` builds nothing and gives
+    None for every scale form, the plain cell forming each stage itself; no
+    kernel is launched. The plan still tells the forms apart: tables for
+    one scale per gate block or one value, the direct chain per column."""
+    sa, ss = (np.float32(np.linspace(0.01, 0.05, 4 * H)), np.float32(np.linspace(
+        0.002, 0.01, 3 * H))) if form == "column" else TABLE_SCALES[form]
+    sa_t, ss_t = (torch.from_numpy(v).requires_grad_() for v in (sa, ss))
+    scalars = [torch.tensor(v, requires_grad=True) for v in (0.005, 0.015, 0.005)]
+    assert quant_lstm_cell_tables(sa_t, ss_t, *scalars, BOUNDS) is None
+    assert quant_lstm_cell_tables.launches == 0
+    strides = {"column": (H, 1, H, 1), "gate": (1, 0, 1, 0), "one": (0, 0, 0, 0)}[form]
+    planned = quant_lstm_cell_table_plan(*strides, *BOUNDS[0], *BOUNDS[3])
+    assert (planned == 0) == (form == "column")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["contiguous", "unbind"])
+def test_two_addend_cell_on_the_cpu(dtype, layout):
+    """``quant_lstm_cell(xp, c, ..., recurrent=p)`` equals the one-tensor
+    plain version on ``xp.float() + p``, for a float32 or bf16 ``xp``,
+    contiguous or a step of ``x_proj.unbind(1)``; its gradients to ``xp``
+    (in ``xp``'s dtype) and to ``p`` equal autograd's through ``.to()`` and
+    ``+``."""
+    gates, c, *scales = _table_cell_inputs("gate", b=B, h=H)
+    rng = np.random.default_rng(11)
+    x_np = rng.standard_normal((B, 3, 4 * H)).astype(np.float32) * 3
+    p_np = rng.standard_normal((B, 4 * H)).astype(np.float32) * 3
+    dh, dcn = (torch.from_numpy(rng.standard_normal((B, H)).astype(np.float32))
+               for _ in range(2))
+    c = torch.from_numpy(np.nan_to_num(c.numpy()))
+    tables = quant_lstm_cell_tables(*scales[:5], BOUNDS)
+    runs = []
+    for two in (True, False):
+        x_all = torch.from_numpy(x_np).to(getattr(torch, dtype)).requires_grad_()
+        p = torch.from_numpy(p_np).requires_grad_()
+        xp = x_all.unbind(1)[1] if layout == "unbind" else x_all[:, 1].contiguous()
+        if two:
+            out = quant_lstm_cell(xp, c, *scales, BOUNDS, recurrent=p, tables=tables)
+        else:
+            out = quant_lstm_cell_reference(xp.to(torch.float32) + p, c, *scales, BOUNDS)
+        torch.autograd.backward(out, (dh, dcn))
+        assert x_all.grad.dtype == x_all.dtype
+        runs.append((*out, x_all.grad, p.grad))
+    for got, want in zip(*runs):
+        assert _same_bits(got.float(), want.float())
+
+
+def test_table_wrappers_refuse_devices_without_a_kernel():
+    """The table build and the two-addend form refuse a tensor on a device
+    without a kernel."""
+    scales = (torch.ones(4, device="meta"), torch.ones(3, device="meta"),
+              *(torch.ones((), device="meta") for _ in range(4)))
+    with pytest.raises(ValueError):
+        quant_lstm_cell_tables(*scales[:5], BOUNDS)
+    xp, c = torch.zeros((2, 8), device="meta"), torch.zeros((2, 2), device="meta")
+    with pytest.raises(ValueError):
+        quant_lstm_cell(xp, c, *scales, BOUNDS, recurrent=xp)
 
 
 # -- the model -----------------------------------------------------------------
