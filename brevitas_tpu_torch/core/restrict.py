@@ -1,11 +1,18 @@
 """Scale-domain restrictions (port of ``brevitas_tpu/core/restrict.py``).
 
-Ported: the FP restriction and the ROUND/CEIL float-to-int maps. The other
-members of the enums name what the JAX package supports and raise here until
-a later slice ports them.
+A restriction is a pair of maps: ``preprocess`` moves a raw (linear-domain)
+init value into the stored domain once, ``forward`` maps the stored value to
+its effective value at every call. FP stores the value itself; LOG_FP and
+POWER_OF_TWO store its log2 and give ``2 ** value`` and ``2 ** f2i(value)``,
+so a learned power-of-two scale trains in log2 space through the
+float-to-int map's straight-through gradient.
+
+Ported: FP, LOG_FP and POWER_OF_TWO, and the ROUND/CEIL float-to-int maps.
+The INT restriction and the other maps raise until a later slice ports them.
 """
 
 import enum
+import math
 
 import torch
 
@@ -37,16 +44,30 @@ def float_to_int_fn(impl: FloatToIntImpl):
     raise NotImplementedError(f"float_to_int {impl.value} is not ported yet")
 
 
+def _check_ported(restrict: RestrictType) -> RestrictType:
+    restrict = RestrictType(restrict)
+    if restrict == RestrictType.INT:
+        raise NotImplementedError("the INT restriction is not ported yet")
+    return restrict
+
+
 def preprocess(restrict: RestrictType, value):
-    """Move a raw (linear-domain) init value into the stored domain."""
-    if RestrictType(restrict) != RestrictType.FP:
-        raise NotImplementedError(f"restriction {restrict} is not ported yet")
-    return value
+    """Move a raw (linear-domain) init value into the stored domain: log2
+    for LOG_FP and POWER_OF_TWO (``math.log2`` of a number, ``torch.log2``
+    of a tensor, which is differentiable)."""
+    if _check_ported(restrict) == RestrictType.FP:
+        return value
+    if isinstance(value, (float, int)):
+        return math.log2(value)
+    return torch.log2(value)
 
 
 def forward(restrict: RestrictType, value: torch.Tensor,
             float_to_int: FloatToIntImpl = FloatToIntImpl.ROUND) -> torch.Tensor:
     """Map a stored value to its effective (linear-domain) value."""
-    if RestrictType(restrict) != RestrictType.FP:
-        raise NotImplementedError(f"restriction {restrict} is not ported yet")
-    return value
+    restrict = _check_ported(restrict)
+    if restrict == RestrictType.FP:
+        return value
+    if restrict == RestrictType.LOG_FP:
+        return 2.0 ** value
+    return 2.0 ** float_to_int_fn(float_to_int)(value)

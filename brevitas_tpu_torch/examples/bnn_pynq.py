@@ -1,26 +1,28 @@
 """bnn_pynq-style QAT trainer CLI (port of ``brevitas_tpu/examples/bnn_pynq.py``).
 
-Trains the FC family (TFC, SFC, LFC) with the square hinge loss, Adam and
-weight clipping to [-1, 1] after every step, on MNIST read from idx files
-under ``--data-dir`` or on synthetic data made from a numpy seed. On the
-card every per-tensor quantizer of the network runs the ``fake_quant``
-CUDA kernel, forward and backward.
+Trains the FC family (TFC, SFC, LFC) and CNV with the square hinge loss,
+Adam and weight clipping to [-1, 1] after every step, on MNIST read from idx
+files or CIFAR-10 read from its python-version batches under ``--data-dir``,
+or on synthetic data made from a numpy seed. On the card every per-tensor
+quantizer of the network runs the ``fake_quant`` CUDA kernel, forward and
+backward, and CNV's convs run as float32 matmuls (``nn.conv``).
 
-Run:  python -m brevitas_tpu_torch.examples.bnn_pynq --network LFC_4W4A \\
+Run:  python -m brevitas_tpu_torch.examples.bnn_pynq --network CNV_4W4A \\
         --dataset synthetic --epochs 1
 
-Ported: the 3- to 8-bit networks (``LFC_4W4A``, ``LFC_8W8A``, ...), MNIST
-and synthetic data, the per-step loop and evaluation. Left out, each with
-an error that says so: the 1- and 2-bit networks (binary quantizers), CNV
-and CIFAR-10 (conv layers), ``--dataset digits`` (needs ``sklearn``),
-``--cfg`` (every shipped ``.ini`` is 1-2 bit), ``--scan``,
-``--native-loader``, ``--resume`` and checkpoint saving.
+Ported: the 3- to 8-bit networks (``LFC_4W4A``, ``CNV_4W4A``, ``CNV_8W8A``,
+...), MNIST, CIFAR-10 and synthetic data, the per-step loop and evaluation.
+Left out, each with an error that says so: the 1- and 2-bit networks
+(binary quantizers), ``--dataset digits`` (needs ``sklearn``), ``--cfg``
+(every shipped ``.ini`` is 1-2 bit), ``--scan``, ``--native-loader``,
+``--resume`` and checkpoint saving.
 """
 
 import argparse
 import gzip
 import json
 import os
+import pickle
 import struct
 import time
 from typing import Iterator, Tuple
@@ -28,10 +30,10 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from brevitas_tpu_torch.models import lfc, sfc, tfc
+from brevitas_tpu_torch.models import cnv, lfc, sfc, tfc
 from brevitas_tpu_torch.utils import resolve_device
 
-NETWORKS = {"TFC": (tfc, "fc"), "SFC": (sfc, "fc"), "LFC": (lfc, "fc")}
+NETWORKS = {"TFC": (tfc, "fc"), "SFC": (sfc, "fc"), "LFC": (lfc, "fc"), "CNV": (cnv, "cnv")}
 # bit widths below this need the binary quantizers, not ported yet
 MIN_BITS = 3
 
@@ -41,8 +43,6 @@ def parse_network(name: str):
     arch, bits = name.upper().split("_")
     w_bits = int(bits[0])
     a_bits = int(bits[2])
-    if arch == "CNV":
-        raise NotImplementedError("CNV is not ported yet (slice 6: conv QAT)")
     if min(w_bits, a_bits) < MIN_BITS:
         raise NotImplementedError(f"{name}: 1- and 2-bit networks are not ported yet "
                                   "(slice 8: binary quantizers)")
@@ -89,10 +89,32 @@ def load_mnist(data_dir: str, split: str):
     raise FileNotFoundError(f"MNIST idx files not found under {data_dir}")
 
 
+def load_cifar10(data_dir: str, split: str):
+    """CIFAR-10's python-version batches (``data_batch_1`` .. ``5`` or
+    ``test_batch`` pickles, each directly under ``data_dir`` or under its
+    ``cifar-10-batches-py``), as (N, 3, 32, 32) float32 in [0, 1]: the rows
+    are stored channel-major, so they reshape to NCHW as they are."""
+    files = ([f"data_batch_{i}" for i in range(1, 6)] if split == "train"
+             else ["test_batch"])
+    xs, ys = [], []
+    for name in files:
+        path = os.path.join(data_dir, name)
+        if not os.path.exists(path):
+            path = os.path.join(data_dir, "cifar-10-batches-py", name)
+        with open(path, "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        xs.append(np.asarray(d[b"data"], np.float32) / 255.0)
+        ys.append(np.asarray(d[b"labels"], np.int32))
+    return np.concatenate(xs).reshape(-1, 3, 32, 32), np.concatenate(ys)
+
+
 def load_synthetic(split: str, kind: str, n: int = 2048, seed: int = 0):
+    """Uniform images and labels from a numpy seed, the JAX trainer's draw:
+    CNV's (n, 32, 32, 3) images transposed to (n, 3, 32, 32)."""
     rng = np.random.default_rng(seed if split == "train" else seed + 1)
     if kind == "cnv":
-        x = rng.random((n, 32, 32, 3), dtype=np.float32)
+        x = np.ascontiguousarray(
+            rng.random((n, 32, 32, 3), dtype=np.float32).transpose(0, 3, 1, 2))
     else:
         x = rng.random((n, 28, 28, 1), dtype=np.float32)
     y = rng.integers(0, 10, n).astype(np.int32)
@@ -153,7 +175,7 @@ LEFT_OUT = {  # option -> why it raises
 def main(argv=None):
     p = argparse.ArgumentParser("brevitas_tpu_torch bnn_pynq trainer")
     p.add_argument("--network", default="LFC_4W4A",
-                   help="{TFC,SFC,LFC}_{3..8}W{3..8}A, e.g. LFC_4W4A")
+                   help="{TFC,SFC,LFC,CNV}_{3..8}W{3..8}A, e.g. LFC_4W4A")
     p.add_argument("--cfg", default=None, help="not ported: " + LEFT_OUT["cfg"])
     p.add_argument("--dataset", default="synthetic",
                    choices=["mnist", "cifar10", "digits", "synthetic"])
@@ -177,17 +199,22 @@ def main(argv=None):
     if args.dataset == "digits":
         raise NotImplementedError("--dataset digits needs sklearn; use mnist (idx files under "
                                   "--data-dir) or synthetic")
-    if args.dataset == "cifar10":
-        raise NotImplementedError("cifar10 trains CNV, which is not ported yet (slice 6)")
     device = resolve_device(args.device)
     builder, kind, w_bits, a_bits = parse_network(args.network)
-    # reference cfgs set IN_BIT_WIDTH equal to the ACT bit width
-    model = builder(weight_bit_width=w_bits, act_bit_width=a_bits, in_bit_width=a_bits,
-                    generator=torch.Generator().manual_seed(args.seed), device=device)
+    model_kw = dict(weight_bit_width=w_bits, act_bit_width=a_bits)
+    if kind == "fc":
+        # reference cfgs set IN_BIT_WIDTH equal to the ACT bit width; CNV
+        # keeps its 8-bit input
+        model_kw["in_bit_width"] = a_bits
+    model = builder(**model_kw, generator=torch.Generator().manual_seed(args.seed),
+                    device=device)
 
     if args.dataset == "mnist":
         x_train, y_train = load_mnist(args.data_dir, "train")
         x_test, y_test = load_mnist(args.data_dir, "test")
+    elif args.dataset == "cifar10":
+        x_train, y_train = load_cifar10(args.data_dir, "train")
+        x_test, y_test = load_cifar10(args.data_dir, "test")
     else:
         x_train, y_train = load_synthetic("train", kind)
         x_test, y_test = load_synthetic("test", kind, n=512)

@@ -6,10 +6,12 @@ dot path (``"hidden.0.weight"``, ``"hidden.1.mean"``,
 The port's modules carry the JAX package's names, so each key walks to the
 same tensor here. QuantLinear weights are transposed from the JAX (in, out)
 layout to torch's (out, in), and so is an ``nnx.Linear``'s ``kernel``, which
-fills a ``torch.nn.Linear``'s ``weight``. A module that the JAX model shares
-between several places (QuantLSTM's hidden-state and cell-state quantizers)
-appears once in its state, at its first path, and fills the one module the
-port shares the same way. The JAX model's random-number state (``rngs.*``)
+fills a ``torch.nn.Linear``'s ``weight``. Conv weights go from the JAX
+package's channels-last HWIO (WIO) to torch's OIHW (OIW), and a per-channel
+tensor stored (1, ..., 1, O) goes to the port's (O, 1, ..., 1). A module
+that the JAX model shares between several places (QuantLSTM's hidden-state
+and cell-state quantizers) appears once in its state, at its first path,
+and fills the one module the port shares the same way. The JAX model's random-number state (``rngs.*``)
 has no counterpart and is skipped.
 """
 
@@ -19,7 +21,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from brevitas_tpu_torch.nn.conv import _QuantConvNd
 from brevitas_tpu_torch.nn.linear import QuantLinear
+
+
+def _one_channel_axis(shape) -> int:
+    """The axis of the one dimension above 1, or -1."""
+    big = [i for i, d in enumerate(shape) if d != 1]
+    return big[0] if len(big) == 1 else -1
 
 
 def load_jax_state(model: nn.Module, arrays: Dict[str, np.ndarray]) -> nn.Module:
@@ -39,6 +48,14 @@ def load_jax_state(model: nn.Module, arrays: Dict[str, np.ndarray]) -> nn.Module
         value = torch.as_tensor(np.array(array))
         if transpose:
             value = value.t()
+        if isinstance(owner, _QuantConvNd) and name == "weight":
+            # (*kernel, I, O) -> (O, I, *kernel)
+            value = value.permute(value.ndim - 1, value.ndim - 2, *range(value.ndim - 2))
+        if (tuple(value.shape) != tuple(target.shape) and value.ndim == target.ndim
+                and value.numel() == target.numel()
+                and _one_channel_axis(value.shape) == value.ndim - 1
+                and _one_channel_axis(target.shape) == 0):
+            value = value.reshape(target.shape)
         if tuple(value.shape) != tuple(target.shape):
             raise ValueError(f"{path}: shape {tuple(value.shape)} does not match "
                              f"{tuple(target.shape)}")

@@ -1,6 +1,6 @@
 """Shared model components for the bnn_pynq family (port of
 ``brevitas_tpu/models/common.py``), plus the norms with flax nnx's
-semantics that the models use: BatchNorm for ``FC``, RMSNorm for
+semantics that the models use: BatchNorm for ``FC`` and ``CNV``, RMSNorm for
 ``QuantLlama``, LayerNorm for ``QuantTransformer``.
 """
 
@@ -47,32 +47,56 @@ def _rsqrt(v: torch.Tensor) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Feature batch norm over the leading axis with flax nnx's semantics
-    (``nnx.BatchNorm`` as ``FC`` builds it), which ``nn.BatchNorm1d`` does
-    not have: the batch variance is ``E[x^2] - E[x]^2`` clamped at 0, the
-    running statistics move as ``ra = momentum * ra + (1 - momentum) *
-    batch`` with the *biased* variance, and the output is ``(x - mean) *
-    (rsqrt(var + eps) * scale) + bias``."""
+    """Batch norm with flax nnx's semantics (``nnx.BatchNorm`` as ``FC`` and
+    ``CNV`` build it), which ``nn.BatchNorm1d``/``2d`` do not have: the batch
+    variance is ``E[x^2] - E[x]^2`` clamped at 0, the running statistics move
+    as ``ra = momentum * ra + (1 - momentum) * batch`` with the *biased*
+    variance, and the output is ``(x - mean) * (rsqrt(var + eps) * scale) +
+    bias``.
 
-    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5):
+    ``channel_axis=None`` (``FC``'s features) reduces over the leading axis
+    in float32. ``channel_axis=1`` (a conv's (N, C, ...) output) reduces over
+    every other axis, with the statistics formed in float64 and each rounded
+    once to float32: the card and a CPU copy then agree bit for bit (their
+    float32 sums over N, H and W run in different orders)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5,
+                 channel_axis=None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.channel_axis = channel_axis
         self.scale = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
 
+    def _batch_stats(self, x: torch.Tensor):
+        if self.channel_axis is None:
+            mean = x.mean(0)
+            return mean, torch.clamp_min((x * x).mean(0) - mean * mean, 0.0)
+        dims = [d for d in range(x.ndim) if d != self.channel_axis]
+        x64 = x.double()
+        mean = x64.mean(dims)
+        var = torch.clamp_min((x64 * x64).mean(dims) - mean * mean, 0.0)
+        return mean.to(x.dtype), var.to(x.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean = x.mean(0)
-            var = torch.clamp_min((x * x).mean(0) - mean * mean, 0.0)
+            mean, var = self._batch_stats(x)
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
                 self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
         else:
             mean, var = self.mean, self.var
-        return (x - mean) * (_rsqrt(var + self.eps) * self.scale) + self.bias
+        mul = _rsqrt(var + self.eps) * self.scale
+        if self.channel_axis is not None:
+            view = [1] * x.ndim
+            view[self.channel_axis] = -1
+            mean, mul, bias = mean.reshape(view), mul.reshape(view), self.bias.reshape(view)
+        else:
+            bias = self.bias
+        return (x - mean) * mul + bias
 
 
 class TensorNorm(nn.Module):

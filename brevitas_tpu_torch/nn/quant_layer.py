@@ -95,6 +95,12 @@ class QuantWBIOL(QuantLayerMixin, nn.Module):
     # see utils.set_compute_dtype
     compute_dtype: Optional[torch.dtype] = None
 
+    def output_channel_view(self, v: torch.Tensor) -> torch.Tensor:
+        """A per-output-channel value in the shape that broadcasts against
+        the output's channel axis: (O,) for the last axis (a linear's, an
+        LSTM's gates); convs put it on axis 1."""
+        return v.reshape(-1)
+
     def quant_weight(self) -> QuantTensor:
         return self.weight_quant(self.weight)
 
@@ -111,11 +117,12 @@ class QuantWBIOL(QuantLayerMixin, nn.Module):
             output_bit_width = self.max_acc_bit_width(quant_input.bit_width,
                                                       quant_weight.bit_width)
         if quant_input.scale is not None and quant_weight.scale is not None:
-            # a per-channel weight scale (out, 1) becomes (out,), which
-            # broadcasts against the (..., out) output
+            # a per-channel weight scale (out, 1, ...) takes the shape of the
+            # output's channel axis: (out,) against a linear's (..., out)
+            # output, (out, 1, 1) against a 2-D conv's (N, out, H, W)
             w_scale = quant_weight.scale
             if w_scale.ndim > 1:
-                w_scale = w_scale.reshape(-1)
+                w_scale = self.output_channel_view(w_scale)
             output_scale = w_scale * quant_input.scale
         if quant_input.signed is not None:
             output_signed = quant_input.signed or quant_weight.signed
@@ -141,7 +148,8 @@ class QuantWBIOL(QuantLayerMixin, nn.Module):
             quant_bias = self.bias_quant(bias, input_scale=output_scale,
                                          input_bit_width=output_bit_width)
             if code_domain:
-                out = inner_forward(x_in, w_in, None) * output_scale + quant_bias.value
+                out = (inner_forward(x_in, w_in, None) * output_scale
+                       + self.output_channel_view(quant_bias.value))
             else:
                 out = inner_forward(x_in, w_in, quant_bias.value)
             if quant_bias.bit_width is not None and output_bit_width is not None:

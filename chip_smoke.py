@@ -86,9 +86,10 @@ Phases; any failure exits non-zero and prints no result:
              terms, and the same bits on a second run. Times as above, each
              path apart and the table build.
 11b. fake_quant_kernels - fake_quant's forward and backward kernels at the
-             shapes of an lfc_qat step ((1024, 784), (1024, 1024), (10, 1024))
-             and an unaligned (3, 5, 7), zero points 0 and 3, both clamp
-             modes, every clamp reached: forward and dx bit for bit against
+             shapes of an lfc_qat step ((1024, 784), (1024, 1024), (10, 1024)),
+             of a cnv_qat step (its nine activation quantizers' inputs, CNV's
+             largest (256, 64, 30, 30) among them) and an unaligned (3, 5,
+             7), zero points 0 and 3, both clamp modes, every clamp reached: forward and dx bit for bit against
              the plain versions on the card; dscale and dzp within 1e-5 *
              sum |term| of the float64 sum of the plain terms; the same bits
              on a second run. Times as above; the library point is torch's
@@ -122,8 +123,26 @@ Phases; any failure exits non-zero and prints no result:
              each later step's loss difference reported; a CPU copy's first
              loss within 1e-5 (BatchNorm's reduction order). ms per step,
              images/s, device busy time and idle share.
-12c. bnn_pynq - examples.bnn_pynq.main(["--network", "LFC_4W4A", "--dataset",
-             "synthetic", "--epochs", "1"]) on the card, its launches counted.
+12c. cnv_qat - bench.py's cnv_int4pc_qat and cnv_int8pc_qat legs at full
+             width, nothing cut: cnv(bits, bits, 8, per_channel_weights=True),
+             batch 256, data drawn as _scanned_train draws it (transposed to
+             NCHW), the square hinge loss, Adam lr 1e-3 and clip_weights(-1,
+             1) through train_step; a warm-up and 10 timed steps, in bf16
+             operands and in float32. 9 fake_quant and 8 fake_quant_backward
+             launches a step (the per-channel weights take the plain chain).
+             A copy on the card runs the plain chain: the warm-up's loss and
+             every gradient the same bits; a CPU copy's first loss within 1e-5,
+             its codes set to the card's at certified .5 ties.
+             First the port's conv (a patch matrix, one strided copy of the
+             input, times the weight matrix in float32): a float32
+             QuantConv2d with TF32 allowed process-wide within K 2^-24 of
+             float64, output and both gradients; and at CNV's six conv
+             shapes, exact on integer codes both ways (cuDNN's F.conv2d, whose
+             Winograd and FFT algorithms are not, counted and timed beside).
+12d. bnn_pynq - examples.bnn_pynq.main(["--network", "LFC_4W4A" and then
+             "CNV_4W4A", "--dataset", "synthetic", "--epochs", "1"]) on the
+             card, its launches counted (CNV_4W4A's const-scale weights
+             launch fake_quant too: 18 and 17 a step).
 13. report - one {"kernels": [...]} line; the last line is
              {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -1121,7 +1140,7 @@ def profile_steps(fn, what: str, unit: str, n: int = 3, grad: bool = False) -> d
     print(f"[{what}] profile per {unit}: device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms "
           f"wall under the profiler (idle share {1 - busy_ms / wall_ms:.3f}), {launches:g} "
           f"device activities; top device ms: "
-          + ", ".join(f"{k[:48]} {t:.4f}" for k, t in top))
+          + ", ".join(f"{k[:100]} {t:.4f}" for k, t in top))
     return {"busy_ms": busy_ms, "wall_ms": wall_ms, "idle_share": 1 - busy_ms / wall_ms,
             "device_activities": launches, "top": [(k[:64], t) for k, t in top]}
 
@@ -1983,6 +2002,14 @@ def device_kernel_counts(fn) -> dict:
 # activations (1024, 1024), forward and backward but the input's; the head's
 # weight (10, 1024). The data's quantizer needs no gradient.
 FQ_STEP_SHAPES = [((1024, 784), 2, 1), ((1024, 1024), 5, 5), ((10, 1024), 1, 1)]
+# fake_quant at the shapes of one cnv_qat step (cnv(bits, bits, 8), batch
+# 256), the same way: the data's input quantizer (forward only), the six conv
+# outputs' quantizers, the first at CNV's largest activation, and the two
+# hidden FC ones; the per-channel weight quantizers take the plain chain
+CNV_FQ_STEP_SHAPES = [((256, 3, 32, 32), 1, 0), ((256, 64, 30, 30), 1, 1),
+                      ((256, 64, 28, 28), 1, 1), ((256, 128, 12, 12), 1, 1),
+                      ((256, 128, 10, 10), 1, 1), ((256, 256, 3, 3), 1, 1),
+                      ((256, 256, 1, 1), 1, 1), ((256, 512), 2, 2)]
 FQ_EDGE_SHAPE = (3, 5, 7)
 # (zero point, lo, hi, ste_clamp): LFC's narrow 4-bit grid, and zero point 3
 FQ_CASES = [(0.0, -7.0, 7.0, False), (0.0, -7.0, 7.0, True), (3.0, -8.0, 7.0, False),
@@ -2011,11 +2038,11 @@ def profiled_device_ms(fn, n: int = 20) -> float:
 
 def phase_fake_quant_kernels(dev, bw) -> list:
     """fake_quant's forward and backward kernels against their plain
-    versions on the card at LFC's step shapes and an unaligned one, every
-    case reaching both clamps: the forward and dx bit for bit, dscale and
-    dzp within FQ_SUM_RTOL * sum |term| of the float64 sum of the plain
-    terms, the same bits on a second run. Timed at the step shapes in the
-    path's case (zero point 0, the zeroing clamp, no scale gradient).
+    versions on the card at LFC's and CNV's step shapes and an unaligned
+    one, every case reaching both clamps: the forward and dx bit for bit,
+    dscale and dzp within FQ_SUM_RTOL * sum |term| of the float64 sum of the
+    plain terms, the same bits on a second run. Timed at the step shapes in
+    the path's case (zero point 0, the zeroing clamp, no scale gradient).
     Returns one row per (kernel, shape)."""
     from brevitas_tpu_torch.kernels import (
         fake_quant,
@@ -2032,7 +2059,7 @@ def phase_fake_quant_kernels(dev, bw) -> list:
     print("[fake_quant_kernels] kernel shape | kernel_ms plain_ms library_ms bound_ms "
           "bound_by (library: torch's fake-quant ops multiply by 1/s: the Pallas kernel's "
           "function, not the port's)")
-    for shape in [sh for sh, _, _ in FQ_STEP_SHAPES] + [FQ_EDGE_SHAPE]:
+    for shape in [sh for sh, _, _ in FQ_STEP_SHAPES + CNV_FQ_STEP_SHAPES] + [FQ_EDGE_SHAPE]:
         x = torch.randn(shape, generator=g, device=dev)
         gy = torch.randn(shape, generator=g, device=dev)
         for zp_v, lo, hi, ste in FQ_CASES:
@@ -2104,27 +2131,35 @@ def phase_fake_quant_kernels(dev, bw) -> list:
     return rows
 
 
-def fake_quant_summary(rows, name, launches) -> dict:
-    """A fake_quant kernel's times over one lfc_qat step: its launches at
+def fake_quant_step_sums(rows, name, step_shapes) -> dict:
+    """A fake_quant kernel's times over one training step: its launches at
     the step's shapes."""
     idx = 1 if name == "fake_quant" else 2
     per_shape = {tuple(r["shape"]): r for r in rows if r["kernel"] == name}
-    sums = {key: sum(per_shape[sh][key] * sh_n[idx - 1] for sh, *sh_n in FQ_STEP_SHAPES)
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms") + (
+        ("ms_with_sums",) if name == "fake_quant_backward" else ())
+    sums = {key: sum(per_shape[sh][key] * sh_n[idx - 1] for sh, *sh_n in step_shapes)
+            for key in keys}
+    sums["launches_per_step"] = sum(c[idx] for c in step_shapes)
+    return sums
+
+
+def fake_quant_summary(rows, name, launches) -> dict:
+    """A fake_quant kernel's row: its times over one lfc_qat step, and over
+    one cnv_qat step beside them."""
+    sums = fake_quant_step_sums(rows, name, FQ_STEP_SHAPES)
+    per_step = sums.pop("launches_per_step")
     entry = {
         "name": name, "route": "cuda", "source": "brevitas_tpu_torch/csrc/fake_quant.cu",
         "replaces": "brevitas_tpu/kernels/fake_quant.py:110", "launches": launches,
         "max_abs_err": 0.0, **sums, "bound_by": "bytes",
-        "per": f"one lfc_qat step at batch {LFC_QAT_BATCH}: "
-               f"{sum(c[idx] for c in FQ_STEP_SHAPES)} launches",
+        "per": f"one lfc_qat step at batch {LFC_QAT_BATCH}: {per_step} launches",
+        "cnv_qat_step": fake_quant_step_sums(rows, name, CNV_FQ_STEP_SHAPES),
         "library_note": "torch.fake_quantize_per_tensor_affine (forward) and the backward of "
                         "torch._fake_quantize_learnable_per_tensor_affine multiply by 1/s: they "
                         "compute the Pallas kernel's function, not the port's",
         "scale_sum_ratio": max(r["scale_sum_ratio"] for r in rows),
     }
-    if name == "fake_quant_backward":
-        entry["ms_with_sums"] = sum(per_shape[sh]["ms_with_sums"] * nb
-                                    for sh, _, nb in FQ_STEP_SHAPES)
     return entry
 
 
@@ -2263,28 +2298,345 @@ def phase_lfc_qat(dev, bf16: bool) -> dict:
     return out
 
 
+# bench.py's cnv_int4pc_qat and cnv_int8pc_qat legs (bench.py:403-424,
+# _scanned_train :226-262): cnv(bits, bits, 8, per_channel_weights=True), at
+# batch 256 on (32, 32, 3) images drawn as _scanned_train draws them and
+# transposed to NCHW, the square hinge loss, Adam lr 1e-3, clip_weights(-1,
+# 1); one scanned epoch is 10 steps
+CNV_QAT_BITS = (4, 8)
+CNV_QAT_BATCH = 256
+CNV_QAT_STEPS = 10
+CNV_QAT_LR = 1e-3
+# the card's first loss against a CPU copy's, the copy's activation codes set
+# to the card's where they differ at a certified .5 tie (CNV_TIE_SHARE): in
+# float32 the convs of fake-quant values sum in another order on the CPU, so a
+# code may flip at a tie, and each flip would move one image's logits; what
+# is left differs in float32 rounding (TensorNorm's sums)
+CNV_QAT_CPU_LOSS_RTOL = 1e-5
+# a code of the CPU copy may differ from the card's only where the two inputs
+# to its quantizer lie on either side of the same half-integer boundary,
+# within this share of the tensor's largest value of each other
+CNV_TIE_SHARE = 1e-5
+# fake_quant launches a step: the input quantizer and the 8 activation
+# quantizers forward (the per-channel weights take the plain chain); the
+# backward of all but the input quantizer, whose input, the data, needs no
+# gradient
+CNV_QAT_FQ = (9, 8)
+# the trainer's CNV_4W4A (const-scale per-tensor weights): its 9 weight
+# quantizers launch both ways as well
+CNV_TRAINER_FQ = (18, 17)
+# a float32 conv under TF32 allowed process-wide (cuDNN's flag and the
+# float32 matmul precision "high"), against a float64 one: x codes 1..7 and
+# w = m (1 + 2^-12) for m in 1..7, all positive, so every product loses 2^-12
+# of itself where an operand is rounded to TF32's 10 mantissa bits, and the
+# float32 sums stay within K 2^-24 of themselves, K the terms a sum (at most
+# 576 here)
+TF32_GUARD_SHAPE = (2, 64, 8, 8)
+# CNV's six convs at batch 256: (in channels, out channels, input size)
+CNV_CONV_SHAPES = [(3, 64, 32), (64, 64, 30), (64, 128, 14), (128, 128, 12), (128, 256, 5),
+                   (256, 256, 3)]
+
+
+def check_convs(dev) -> dict:
+    """The port's conv (nn.conv.conv_nd: a patch matrix times the weight
+    matrix in float32) on the card. (1) In full float32 with TF32 allowed
+    process-wide: a QuantConv2d's output, input gradient and weight
+    gradient within K 2^-24 of a float64 conv's (see TF32_GUARD_SHAPE; TF32
+    would miss by 2^-12), cuDNN's F.conv2d under the same flags printed
+    beside it. (2) Exact on integer codes at CNV's conv shapes
+    (CNV_CONV_SHAPES, codes in -7..7 and the input's 8-bit codes at the
+    first conv), forward, input and weight gradients, as the code-domain
+    branch needs; cuDNN's F.conv2d and its backward, TF32 off, counted
+    beside it, and both timed (forward and backward, the card kept
+    busy)."""
+    from brevitas_tpu_torch.nn import QuantConv2d
+    from brevitas_tpu_torch.nn.conv import conv_nd
+
+    n, c, h, w = TF32_GUARD_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(3)
+    conv = QuantConv2d(c, c, 3, padding="VALID", use_bias=False, weight_quant=None, device=dev)
+    tf32_step = 1.0 + 2.0 ** -12
+
+    def draw(shape, lo=1, hi=8, scale=1.0):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev).float() * scale
+
+    with torch.no_grad():
+        conv.weight.copy_(draw(conv.weight.shape, scale=tf32_step))
+    x = draw((n, c, h, w)).requires_grad_()
+    gy = draw((n, c, h - 2, w - 2), scale=tf32_step)
+    saved = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        y = conv(x)
+        dx, dw = torch.autograd.grad(y, (x, conv.weight), gy)
+        with torch.no_grad():
+            control = torch.nn.functional.conv2d(x, conv.weight)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    x64 = x.detach().double().requires_grad_()
+    w64 = conv.weight.detach().double().requires_grad_()
+    y64 = torch.nn.functional.conv2d(x64, w64)
+    dx64, dw64 = torch.autograd.grad(y64, (x64, w64), gy.double())
+    out = {}
+    for name, got, want, terms in (("y", y, y64, c * 9), ("dx", dx, dx64, c * 9),
+                                   ("dw", dw, dw64, n * (h - 2) * (w - 2)),
+                                   ("cudnn_y", control, y64, c * 9)):
+        rel = float(((got.detach().double() - want.detach()).abs() / want.detach()).max())
+        out[name] = rel
+        if not name.startswith("cudnn") and rel > terms * 2.0 ** -24:
+            raise AssertionError(f"convs: the conv's {name} under TF32 allowed is {rel:.3g} "
+                                 f"from float64, over {terms} * 2^-24")
+    print(f"[convs] TF32 allowed process-wide: the module's conv is float32 (largest share of "
+          f"float64 off: y {out['y']:.3g}, dx {out['dx']:.3g}, dw {out['dw']:.3g}; TF32 would "
+          f"be {2.0 ** -12:.3g}); cuDNN's F.conv2d under the same flags: {out['cudnn_y']:.3g}")
+
+    out["exact"] = []
+    for cin, cout, size in CNV_CONV_SHAPES:
+        lo, hi = (-128, 128) if cin == 3 else (-7, 8)
+        xc = draw((CNV_QAT_BATCH, cin, size, size), lo, hi).requires_grad_()
+        wc = draw((cout, cin, 3, 3), -7, 8).requires_grad_()
+        gc_ = draw((CNV_QAT_BATCH, cout, size - 2, size - 2), -7, 8)
+        x64, w64 = xc.detach().double(), wc.detach().double()
+        want = torch.ops.aten.convolution_backward(gc_.double(), x64, w64, None, [1, 1],
+                                                   [0, 0], [1, 1], False, [0, 0], 1,
+                                                   [True, True, False])[:2]
+        want = (torch.nn.functional.conv2d(x64, w64),) + want
+        pads = ((0, 0), (0, 0))
+
+        def port_conv():
+            yv = conv_nd(xc, wc, (1, 1), pads, (1, 1))
+            return (yv,) + torch.autograd.grad(yv, (xc, wc), gc_)
+
+        def cudnn_conv():
+            yv = torch.nn.functional.conv2d(xc, wc)
+            return (yv,) + torch.autograd.grad(yv, (xc, wc), gc_)
+
+        port, cudnn = port_conv(), cudnn_conv()
+        torch.cuda.synchronize()
+        inexact = [int((a.double() != b).sum()) for a, b in zip(port, want)]
+        cudnn_inexact = [int((a.double() != b).sum()) for a, b in zip(cudnn, want)]
+        row = {"shape": [CNV_QAT_BATCH, cin, size, size, cout], "inexact": inexact,
+               "cudnn_inexact": cudnn_inexact, "ms": cuda_ms(port_conv, reps=10, inner=3),
+               "cudnn_ms": cuda_ms(cudnn_conv, reps=10, inner=3)}
+        out["exact"].append(row)
+        print(f"[convs] {cin} -> {cout} at {size} x {size}, batch {CNV_QAT_BATCH}: the port's "
+              f"conv forward, dx, dw inexact in {inexact} elements, cuDNN's in "
+              f"{cudnn_inexact} (of {[v.numel() for v in want]}); forward and backward "
+              f"{row['ms']:.4f} ms, cuDNN {row['cudnn_ms']:.4f} ms, on {CARD[0]}")
+        if any(inexact):
+            raise AssertionError(f"convs: integer sums inexact at {row['shape']}: {inexact}")
+    return out
+
+
+def cnv_act_quantizers(model):
+    """CNV's activation quantizers in forward order: the input's, then the
+    eight after its BatchNorms."""
+    from brevitas_tpu_torch.nn import QuantIdentity
+
+    return [model.input_quant] + [m for m in [*model.conv_features, *model.linear_features]
+                                  if isinstance(m, QuantIdentity)]
+
+
+@contextlib.contextmanager
+def recorded_act_codes(model, store: list):
+    """Forward hooks that keep each activation quantizer's input and output
+    value, in call order."""
+    def hook(mod, args, out):
+        store.append((args[0].detach(), out.value.detach()))
+
+    handles = [q.register_forward_hook(hook) for q in cnv_act_quantizers(model)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+@contextlib.contextmanager
+def forced_act_codes(model, want: list, flips: list):
+    """Forward hooks on a CPU copy: each activation quantizer's output where
+    it differs from the card's (``want``, from recorded_act_codes) must be a
+    certified .5 tie (CNV_TIE_SHARE), and then takes the card's value, so the
+    rest of the forward sees the card's codes. Appends the count to
+    ``flips``."""
+    from brevitas_tpu_torch.quant_tensor import QuantTensor
+
+    def hook(mod, args, out):
+        i = len(flips)
+        want_x, want_y = (v.cpu() for v in want[i])
+        got_x, got_y = args[0].detach(), out.value.detach()
+        differ = got_y != want_y
+        flips.append(int(differ.sum()))
+        if not flips[-1]:
+            return out
+        s = float(out.scale)
+        c_got, c_want = torch.round(got_y[differ] / s), torch.round(want_y[differ] / s)
+        half = (c_got + c_want) / 2
+        ok = (((c_got - c_want).abs() == 1)
+              & ((got_x[differ] / s - half) * (want_x[differ] / s - half) <= 0)
+              & ((got_x[differ] - want_x[differ]).abs() <= CNV_TIE_SHARE * want_x.abs().max()))
+        if not bool(ok.all()):
+            raise AssertionError(f"cnv_qat: quantizer {i}: {int((~ok).sum())} codes of the CPU "
+                                 "copy differ from the card's away from a .5 tie")
+        return QuantTensor(want_y, out.scale, out.zero_point, out.bit_width, signed=out.signed,
+                           training=out.training)
+
+    handles = [q.register_forward_hook(hook) for q in cnv_act_quantizers(model)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def phase_cnv_qat(dev, bits: int, bf16: bool) -> dict:
+    """bench's cnv_int{bits}pc_qat step at full width through the port's
+    trainer step (examples.bnn_pynq.train_step), a warm-up and CNV_QAT_STEPS
+    timed steps, in bf16 operands (bench's default) or float32. A copy on
+    the card runs the plain chain in every quantizer: the warm-up's loss and
+    every gradient the same bits, each later step's loss difference
+    reported. The path calls no cuDNN (the convs are a patch matrix times
+    the weights at the highest float32 matmul precision, which they take
+    themselves), so cuDNN's determinism flag governs nothing here; every
+    step runs under the default flags. A CPU copy's first loss within
+    CNV_QAT_CPU_LOSS_RTOL, its activation codes set to the card's where they
+    differ at certified .5 ties (forced_act_codes)."""
+    from brevitas_tpu_torch.examples import bnn_pynq
+    from brevitas_tpu_torch.models import cnv
+    from brevitas_tpu_torch.utils import set_compute_dtype
+
+    what = f"cnv_qat_int{bits}pc_{'bf16' if bf16 else 'float32'}"
+    gc.collect()
+    model = cnv(bits, bits, 8, per_channel_weights=True,
+                generator=torch.Generator().manual_seed(0), device=dev)
+    if bf16:
+        set_compute_dtype(model, torch.bfloat16)
+    plain = copy.deepcopy(model)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    # the data as bench.py's _scanned_train draws it, in NCHW
+    rng = np.random.default_rng(0)
+    xs_np = np.ascontiguousarray(rng.random(
+        (CNV_QAT_STEPS, CNV_QAT_BATCH, 32, 32, 3), dtype=np.float32).transpose(0, 1, 4, 2, 3))
+    ys_np = rng.integers(0, 10, (CNV_QAT_STEPS, CNV_QAT_BATCH)).astype(np.int32)
+    xs, ys = torch.from_numpy(xs_np).to(dev), torch.from_numpy(ys_np).to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=CNV_QAT_LR)
+    plain_opt = torch.optim.Adam(plain.parameters(), lr=CNV_QAT_LR)
+
+    # the warm-up step on both paths: the same loss and gradient bits
+    card_codes = []
+    _reset_launch_counts()
+    with recorded_act_codes(model, card_codes):
+        loss0 = bnn_pynq.train_step(model, opt, xs[0], ys[0])
+    torch.cuda.synchronize()
+    warm_counts = _launch_counts()
+    with plain_fake_quant():
+        plain0 = bnn_pynq.train_step(plain, plain_opt, xs[0], ys[0])
+    torch.cuda.synchronize()
+    if not torch.equal(loss0, plain0):
+        raise AssertionError(f"{what}: first-step loss {float(loss0)} differs from the plain "
+                             f"chain's {float(plain0)}")
+    plain_params = dict(plain.named_parameters())
+    differ = [n for n, p in model.named_parameters()
+              if not torch.equal(p.grad, plain_params[n].grad)]
+    if differ:
+        raise AssertionError(f"{what}: first-step gradients differ from the plain chain's: "
+                             f"{differ}")
+    flips = []
+    with torch.no_grad(), forced_act_codes(cpu_model, card_codes, flips):
+        cpu_loss = float(bnn_pynq.sqr_hinge_loss(cpu_model(torch.from_numpy(xs_np[0])),
+                                                 torch.from_numpy(ys_np[0])))
+    del card_codes
+    cpu_dev = abs(float(loss0) - cpu_loss) / abs(cpu_loss)
+    print(f"[{what}] warm-up step: loss {float(loss0)} the same bits as "
+          f"the plain chain's, all {len(plain_params)} gradients the same bits; CPU copy's "
+          f"loss {cpu_loss} (relative {cpu_dev:.3g}) with {sum(flips)} codes set to the card's "
+          f"at certified ties (by quantizer {flips}); launches {warm_counts}")
+    if cpu_dev > CNV_QAT_CPU_LOSS_RTOL:
+        raise AssertionError(f"{what}: the card's first loss is {cpu_dev:.3g} from a CPU copy's")
+    fq_want = {"fake_quant": CNV_QAT_FQ[0], "fake_quant_backward": CNV_QAT_FQ[1]}
+    if any(warm_counts[k] != v for k, v in fq_want.items()):
+        raise AssertionError(f"{what}: fake_quant launches {warm_counts}, expected {fq_want}")
+
+    # the timed steps: one scanned epoch of bench, under the same flags
+    flags = {"float32_matmul_precision (process; the convs take 'highest')":
+             torch.get_float32_matmul_precision()}
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [bnn_pynq.train_step(model, opt, xs[i], ys[i]) for i in range(CNV_QAT_STEPS)]
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    counts = _launch_counts()
+    _record_path(what, {k: v + warm_counts[k] for k, v in counts.items()})
+    want = {k: CNV_QAT_STEPS * fq_want.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts} over {CNV_QAT_STEPS} steps, "
+                             f"expected {want}")
+    with plain_fake_quant():
+        plain_losses = [bnn_pynq.train_step(plain, plain_opt, xs[i], ys[i])
+                        for i in range(CNV_QAT_STEPS)]
+    losses = [float(v) for v in losses]
+    plain_losses = [float(v) for v in plain_losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: losses {losses}")
+    step_dev = [abs(a - b) for a, b in zip(losses, plain_losses)]
+    clip = max(float(lyr.weight.detach().abs().max()) for lyr in model.modules()
+               if hasattr(lyr, "weight_quant"))
+    if clip > 1.0:
+        raise AssertionError(f"{what}: a weight outside [-1, 1] after clip_weights: {clip}")
+    ms = total_ms / CNV_QAT_STEPS
+    out = {"compute_dtype": "bf16" if bf16 else "float32", "bits": bits, "ms_per_step": ms,
+           "images_per_s": CNV_QAT_BATCH / ms * 1e3, "losses": losses,
+           "first_loss": float(loss0), "cpu_first_loss_rel_dev": cpu_dev,
+           "cpu_tie_flips": flips,
+           "loss_dev_per_step": step_dev, "timed_flags": flags,
+           "fake_quant_per_step": counts["fake_quant"] / CNV_QAT_STEPS,
+           "fake_quant_backward_per_step": counts["fake_quant_backward"] / CNV_QAT_STEPS}
+    print(f"[{what}] {CNV_QAT_STEPS} steps: {ms:.3f} ms per step (host clock over the epoch, "
+          f"synchronized at its end), {out['images_per_s']:.0f} images/s, "
+          f"{out['compute_dtype']} operands, flags {flags}, on {CARD[0]}; fake_quant launches "
+          f"per step {out['fake_quant_per_step']:g} forward, "
+          f"{out['fake_quant_backward_per_step']:g} backward; kernel path vs plain chain: loss "
+          f"|diff| per step max {max(step_dev):.3g} ({step_dev})")
+
+    def one_step():
+        bnn_pynq.train_step(model, opt, xs[0], ys[0])
+        torch.cuda.synchronize()
+
+    out["profile"] = profile_steps(one_step, what, "training step", n=3, grad=True)
+    print(f"[{what}] device busy {out['profile']['busy_ms']:.4f} ms a step, idle share "
+          f"{out['profile']['idle_share']:.3f}, {out['compute_dtype']} operands, on {CARD[0]}")
+    return out
+
+
 def phase_bnn_pynq(dev) -> dict:
-    """The trainer's entry point on the card: examples.bnn_pynq.main, LFC
-    4-bit, synthetic data, one epoch (20 steps at batch 100, then the
-    evaluation of 512 images in 2 batches)."""
+    """The trainer's entry point on the card: examples.bnn_pynq.main on
+    synthetic data for one epoch (20 steps at batch 100, then the evaluation
+    of 512 images in 2 batches), LFC_4W4A and CNV_4W4A."""
     from brevitas_tpu_torch.examples import bnn_pynq
 
-    _reset_launch_counts()
-    acc = bnn_pynq.main(["--network", "LFC_4W4A", "--dataset", "synthetic", "--epochs", "1",
-                         "--device", str(dev)])
-    torch.cuda.synchronize()
-    counts = _launch_counts()
-    _record_path("bnn_pynq", counts)
-    steps, evals = 2048 // 100, 2
-    want = {k: 0 for k in counts}
-    want.update(fake_quant=LFC_QAT_FQ[0] * (steps + evals),
-                fake_quant_backward=LFC_QAT_FQ[1] * steps)
-    print(f"[bnn_pynq] main: val acc {acc} (synthetic labels: chance), launches {counts}")
-    if counts != want:
-        raise AssertionError(f"bnn_pynq: launches {counts}, expected {want}")
-    if not 0.0 <= acc <= 1.0:
-        raise AssertionError(f"bnn_pynq: accuracy {acc}")
-    return {"val_acc": acc, "launches": counts}
+    out = {}
+    for network, fq in (("LFC_4W4A", LFC_QAT_FQ), ("CNV_4W4A", CNV_TRAINER_FQ)):
+        path = "bnn_pynq" if network == "LFC_4W4A" else f"bnn_pynq_{network.lower()}"
+        _reset_launch_counts()
+        acc = bnn_pynq.main(["--network", network, "--dataset", "synthetic", "--epochs", "1",
+                             "--device", str(dev)])
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        _record_path(path, counts)
+        steps, evals = 2048 // 100, 2
+        want = {k: 0 for k in counts}
+        want.update(fake_quant=fq[0] * (steps + evals), fake_quant_backward=fq[1] * steps)
+        print(f"[{path}] main {network}: val acc {acc} (synthetic labels: chance), "
+              f"launches {counts}")
+        if counts != want:
+            raise AssertionError(f"{path}: launches {counts}, expected {want}")
+        if not 0.0 <= acc <= 1.0:
+            raise AssertionError(f"{path}: accuracy {acc}")
+        out[network] = {"val_acc": acc, "launches": counts}
+    return out
 
 
 def lstm_summary(rows, name, lstm, replaces, path):
@@ -2406,6 +2758,9 @@ def main() -> int:
     serve_decode = phase_serve_decode(dev)
     lstm = {"float32": phase_lstm_qat(dev), "bf16": phase_lstm_qat(dev, bf16=True)}
     lfc_qat = {"bf16": phase_lfc_qat(dev, bf16=True), "float32": phase_lfc_qat(dev, bf16=False)}
+    convs = check_convs(dev)
+    cnv_qat = {f"int{b}pc_{d}": phase_cnv_qat(dev, b, bf16=d == "bf16")
+               for b in CNV_QAT_BITS for d in ("bf16", "float32")}
     trainer = phase_bnn_pynq(dev)
 
     int8_by_path = {"serve": serve_int8, "lfc8": lfc_launches["int8_matmul"],
@@ -2478,8 +2833,9 @@ def main() -> int:
                      "_cell_fwd_kernel:58)", "build"),
         lstm_summary(lstm_rows, "quant_lstm_cell_backward", lstm,
                      "brevitas_tpu/kernels/lstm_cell.py:224", "direct"),
-        *(fake_quant_summary(fq_rows, name, sum(PATH_COUNTS[f"lfc_qat_{d}"][name]
-                                                for d in lfc_qat))
+        *(fake_quant_summary(fq_rows, name, sum(
+            PATH_COUNTS[path][name] for path in
+            [f"lfc_qat_{d}" for d in lfc_qat] + [f"cnv_qat_{k}" for k in cnv_qat]))
           for name in ("fake_quant", "fake_quant_backward")),
     ], "serve": serve_out,
         "llama_prefill": {k: v for k, v in prefill.items() if k != "profile"},
@@ -2493,6 +2849,9 @@ def main() -> int:
                      for d, run in lstm.items()},
         "lfc_qat": {d: {k: v for k, v in run.items() if k != "profile"}
                     for d, run in lfc_qat.items()},
+        "cnv_qat": {k: {kk: vv for kk, vv in run.items() if kk != "profile"}
+                    for k, run in cnv_qat.items()},
+        "convs": convs,
         "bnn_pynq": trainer,
         "seconds": time.perf_counter() - t0}
     for entry in report["kernels"]:

@@ -36,7 +36,8 @@ FILE_SECONDS = {
     "tests/test_properties.py": 105, "tests/test_compute_dtype.py": 104,
     "tests/test_audio.py": 85, "tests/test_parallel.py": 72,
     "tests/test_dynamic_quant.py": 68, "tests/test_pipeline.py": 65,
-    "tests/test_torch_port_attention.py": 59, "tests/test_moe.py": 55,
+    "tests/test_torch_port_attention.py": 59, "tests/test_torch_port_cnv.py": 55,
+    "tests/test_moe.py": 55,
     "tests/test_gpfq.py": 55, "tests/test_torch_port_w4a8.py": 54,
     "tests/test_mixed_precision.py": 54, "tests/test_quantizers.py": 52,
     "tests/test_float_quant.py": 49, "tests/test_nn_layers.py": 49,

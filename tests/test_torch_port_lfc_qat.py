@@ -498,8 +498,8 @@ def test_bnn_pynq_main_trains_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--network", "LFC_1W1A"], ["--network", "LFC_2W2A"], ["--network", "CNV_4W4A"],
-    ["--dataset", "digits"], ["--dataset", "cifar10"], ["--cfg", "lfc_1w1a"], ["--scan"],
+    ["--network", "LFC_1W1A"], ["--network", "LFC_2W2A"], ["--network", "CNV_1W1A"],
+    ["--dataset", "digits"], ["--network", "CNV_2W2A"], ["--cfg", "lfc_1w1a"], ["--scan"],
     ["--native-loader"], ["--resume", "best.pkl"]], ids=lambda a: "_".join(a).strip("-"))
 def test_bnn_pynq_refuses_what_is_not_ported(argv):
     with pytest.raises(NotImplementedError):
