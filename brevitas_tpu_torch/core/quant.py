@@ -55,3 +55,15 @@ def rescaling_scale(threshold: torch.Tensor, bit_width, *, signed: bool,
     does not wait for the card."""
     divisor = int_scaling(bit_width, signed=signed, narrow_range=narrow_range)
     return threshold / torch.full_like(threshold, divisor)
+
+
+def trunc_int_quant(x: torch.Tensor, scale, zero_point, input_bit_width, output_bit_width, *,
+                    float_to_int: FloatToInt = round_ste) -> torch.Tensor:
+    """Accumulator truncation: drop the low bits that take ``input_bit_width``
+    down to ``output_bit_width`` (QuantAvgPool2d's renormalisation of its
+    window sum). The first rounding cleans the float error of the value's
+    codes; the division by ``2 ** (input - output)`` is exact."""
+    y = round_ste(x / scale + zero_point)
+    y = y / 2.0 ** (input_bit_width - output_bit_width)
+    y = float_to_int(y)
+    return (y - zero_point) * scale

@@ -7,7 +7,8 @@ POWER_OF_TWO store its log2 and give ``2 ** value`` and ``2 ** f2i(value)``,
 so a learned power-of-two scale trains in log2 space through the
 float-to-int map's straight-through gradient.
 
-Ported: FP, LOG_FP and POWER_OF_TWO, and the ROUND/CEIL float-to-int maps.
+Ported: FP, LOG_FP and POWER_OF_TWO, and the ROUND/CEIL/FLOOR float-to-int
+maps.
 The INT restriction and the other maps raise until a later slice ports them.
 """
 
@@ -16,7 +17,7 @@ import math
 
 import torch
 
-from brevitas_tpu_torch.ops import ceil_ste, round_ste
+from brevitas_tpu_torch.ops import ceil_ste, floor_ste, round_ste
 
 
 class RestrictType(str, enum.Enum):
@@ -41,6 +42,8 @@ def float_to_int_fn(impl: FloatToIntImpl):
         return round_ste
     if impl == FloatToIntImpl.CEIL:
         return ceil_ste
+    if impl == FloatToIntImpl.FLOOR:
+        return floor_ste
     raise NotImplementedError(f"float_to_int {impl.value} is not ported yet")
 
 
@@ -69,5 +72,7 @@ def forward(restrict: RestrictType, value: torch.Tensor,
     if restrict == RestrictType.FP:
         return value
     if restrict == RestrictType.LOG_FP:
-        return 2.0 ** value
+        # formed in float64 and rounded once: torch's float32 pow gives other
+        # last bits on the card than on the CPU
+        return torch.exp2(value.double()).to(value.dtype)
     return 2.0 ** float_to_int_fn(float_to_int)(value)

@@ -1,7 +1,7 @@
 """QAT -> integer-domain serving conversion (port of
 ``brevitas_tpu/graph/convert_int.py``; ported: the QuantLinear twins, the
-QuantMultiheadAttention twin and ``convert_integer_inference`` restricted
-to those layers).
+QuantConv twin, the QuantMultiheadAttention twin and
+``convert_integer_inference`` restricted to those layers).
 
 Freeze the trained quantizer state, cache the integer weights and scales,
 and serve with the integer GEMM kernels, dequant in the epilogue. With
@@ -13,8 +13,18 @@ the M >= 16 gate and the attention gate, measured on a TPU v5e) and packs
 only int4 weights that tile its Pallas kernel (``int4_block_shapes_ok``).
 No such gate carries over: on the card every serving call launches the
 hand-written kernel.
+
+Convs: torch has no int8 conv on CUDA, and cuDNN's float32 convs miss
+integer sums on the H100 (Winograd/FFT). A pointwise conv (kernel 1,
+stride 1, dilation 1, ungrouped, no padding) is a GEMM and runs on
+``int8_matmul``; every other conv sums its codes through the port's
+patch-matrix conv (``nn.conv.conv_nd``), in float32 where the worst case
+``K * 128 * max|w code|`` stays below 2^24 (every partial sum an exact
+integer), else in float64 (exact below 2^53). The rule is decided when the
+twin is built, from the shapes and the weight bit width.
 """
 
+import itertools
 from typing import Optional
 
 import torch
@@ -34,6 +44,7 @@ from brevitas_tpu_torch.kernels import (
     update_kv_packed,
 )
 from brevitas_tpu_torch.nn.attention import QuantMultiheadAttention, apply_rope
+from brevitas_tpu_torch.nn.conv import _QuantConvNd, conv_nd, resolve_pads
 from brevitas_tpu_torch.nn.linear import QuantLinear
 from brevitas_tpu_torch.ops import max_int, min_int
 from brevitas_tpu_torch.quant.config import QuantType
@@ -48,7 +59,8 @@ def _freeze_act_quant(act_quantizer):
                          f"{act_quantizer.quant_type}")
     act_quantizer.eval()
     scaling = act_quantizer.scaling
-    device = next(scaling.buffers()).device
+    # a learned scale is a parameter, a constant or collected one a buffer
+    device = next(itertools.chain(scaling.parameters(), scaling.buffers())).device
     qt = act_quantizer(torch.zeros((1, 1), device=device))
     cfg = act_quantizer.cfg
     lo = float(min_int(cfg.signed, cfg.narrow_range, qt.bit_width))
@@ -212,6 +224,137 @@ class WeightOnlyInt4InferenceLinear(nn.Module):
         return _apply_output_quant(y, self.output_quant)
 
 
+# sums of integers in float32 are exact while every partial sum stays below
+# 2^24; an int8 input code is at most 128 in size
+FLOAT32_EXACT = 2.0 ** 24
+MAX_X_CODE = 128
+
+
+def conv_acc_dtype(fan_in: int, weight_bit_width: float, narrow_range: bool) -> torch.dtype:
+    """The dtype in which a conv's integer codes sum exactly: float32 where
+    ``fan_in * 128 * max|w code|`` stays below 2^24, else float64."""
+    w_max = max(abs(min_int(True, narrow_range, weight_bit_width)),
+                max_int(True, narrow_range, weight_bit_width))
+    return torch.float32 if fan_in * MAX_X_CODE * w_max < FLOAT32_EXACT else torch.float64
+
+
+class Int8InferenceConv(nn.Module):
+    """Serving twin of a trained QuantConv1d/2d: cached integer weight
+    codes, the conv of the input's codes summed exactly, and the dequant in
+    the epilogue, ``(acc + shift * correction) * (x_scale * w_scale) +
+    bias`` in the JAX package's order. Pointwise convs run on
+    ``int8_matmul`` with unit scales and no bias (its float32 accumulator is
+    exact below 2^24), so the epilogue stays the JAX package's; the others
+    on the exact conv route (module docstring). Unsigned inputs re-centre
+    by 128 into int8; the shift comes back through the weight column sums
+    (pointwise) or a batch-1 conv of ones with the input-channel sums of
+    the kernel (zero padding changes the sum at the borders). With no
+    input quantizer the grid comes with the input (``_carried_codes``); an
+    input without one takes the float conv of the dequantized weights."""
+
+    def __init__(self, qconv: _QuantConvNd):
+        super().__init__()
+        with torch.no_grad():
+            qw = qconv.quant_weight()
+            bit_width = float(qw.bit_width)
+            if bit_width > 8.0:
+                raise ValueError("the int8 path needs bit_width <= 8")
+            w_int = qw.int()  # (O, C / groups, *kernel) int8
+            out_ch = w_int.shape[0]
+            self.register_buffer("w_scale", qw.scale.reshape(-1).to(torch.float32))
+            self.register_buffer("w_int", w_int)
+            self.register_buffer("bias", qconv.bias.detach().to(torch.float32)
+                                 if qconv.bias is not None else None)
+            if qconv.input_quant.quant_type == QuantType.NONE:
+                self.x_scale = None
+            else:
+                x_scale, x_zp, self.x_lo, self.x_hi = _freeze_act_quant(qconv.input_quant)
+                self.register_buffer("x_scale", x_scale.reshape(()))
+                self.x_zp = float(x_zp)
+                self.x_signed = qconv.input_quant.cfg.signed
+                self.x_shift = 0.0 if self.x_signed else 128.0
+            self.spatial_dims = qconv.spatial_dims
+            self.kernel_size = qconv.kernel_size
+            self.stride = qconv.stride
+            self.dilation = qconv.dilation
+            self.groups = qconv.groups
+            self.padding = qconv.padding
+            self.pointwise = (all(k == 1 for k in qconv.kernel_size)
+                              and all(v == 1 for v in qconv.stride)
+                              and all(v == 1 for v in qconv.dilation)
+                              and qconv.groups == 1
+                              and (isinstance(qconv.padding, str)
+                                   or all(p == (0, 0) for p in qconv.padding)))
+            if self.pointwise:
+                w_mat = w_int.reshape(out_ch, -1).t().contiguous()  # (C, O)
+                self.register_buffer("w_mat", w_mat)
+                self.register_buffer("colsum", w_mat.to(torch.int32).sum(0).to(torch.float32))
+                self.register_buffer("unit", torch.ones((), device=w_int.device))
+                self.acc_dtype = torch.float32
+            else:
+                self.acc_dtype = conv_acc_dtype(qconv.reduce_size, bit_width,
+                                                qconv.weight_quant.cfg.narrow_range)
+                self.register_buffer("w_codes", w_int.to(self.acc_dtype))
+                # the kernel summed over its input channels: one channel a group
+                self.register_buffer("w_ksum", w_int.to(torch.int32).sum(1, keepdim=True)
+                                     .to(torch.float32))
+        self.output_quant = _freeze_output_quant(getattr(qconv, "output_quant", None))
+
+    def _channels(self, v: torch.Tensor) -> torch.Tensor:
+        """A per-output-channel (O,) value against the (N, O, *spatial) output."""
+        return v.reshape(-1, *(1,) * self.spatial_dims)
+
+    def _pads(self, sizes):
+        return resolve_pads(self.padding, sizes, self.kernel_size, self.stride, self.dilation)
+
+    def _conv(self, x_int: torch.Tensor) -> torch.Tensor:
+        """The float32 accumulator of the conv of int8 codes, exact."""
+        if self.pointwise:
+            n, c = x_int.shape[:2]
+            flat = x_int.movedim(1, -1).reshape(-1, c)
+            acc = int8_matmul(flat, self.w_mat, self.unit, self.unit)
+            return acc.reshape(n, *x_int.shape[2:], -1).movedim(-1, 1)
+        acc = conv_nd(x_int.to(self.acc_dtype), self.w_codes, self.stride,
+                      self._pads(x_int.shape[2:]), self.dilation, self.groups)
+        return acc.to(torch.float32)
+
+    def forward(self, x) -> torch.Tensor:
+        if self.x_scale is None:
+            carried = _carried_codes(x)
+            if carried is None:
+                # no grid for this input: the float conv of the dequantized weights
+                v = _val(x)
+                w = self.w_int.to(torch.float32) * self.w_scale.reshape(
+                    -1, *(1,) * (self.w_int.ndim - 1))
+                y = conv_nd(v, w, self.stride, self._pads(v.shape[2:]), self.dilation,
+                            self.groups)
+                if self.bias is not None:
+                    y = y + self._channels(self.bias)
+                return _apply_output_quant(y, self.output_quant)
+            x_int, x_scale, shift = carried
+            x = _val(x)
+        else:
+            x = _val(x)
+            x_scale = self.x_scale
+            shift = self.x_shift - self.x_zp
+            x_int = torch.clamp(torch.round(x / x_scale + self.x_zp), self.x_lo, self.x_hi)
+            x_int = (x_int - self.x_shift).to(torch.int8)
+        acc = self._conv(x_int)
+        if shift != 0.0:
+            if self.pointwise:
+                # kernel 1: no borders, the correction is one value a channel
+                acc = acc + shift * self._channels(self.colsum)
+            else:
+                ones = torch.ones((1, self.groups, *x.shape[2:]), device=x.device)
+                ksum = conv_nd(ones, self.w_ksum, self.stride, self._pads(x.shape[2:]),
+                               self.dilation, self.groups)
+                acc = acc + shift * ksum
+        y = acc * self._channels(x_scale * self.w_scale)
+        if self.bias is not None:
+            y = y + self._channels(self.bias)
+        return _apply_output_quant(y, self.output_quant)
+
+
 class Int8InferenceAttention(nn.Module):
     """Serving twin of a trained QuantMultiheadAttention: int8 projection
     GEMMs around the int8 attention core (``kernels.int8_attention``), with
@@ -358,8 +501,9 @@ def convert_integer_inference(model: nn.Module) -> nn.Module:
     projections become integer twins with it); a QuantLinear for weight-only
     int4 when it has no input quantizer and weights of 4 bits or fewer, else
     ``Int8InferenceLinear`` (frozen input grid, or the carried grid when it
-    has no input quantizer; packed weights for W4A8). Other layers stay on
-    the fake-quant path."""
+    has no input quantizer; packed weights for W4A8); a QuantConv1d/2d with
+    INT weights for ``Int8InferenceConv``. Other layers stay on the
+    fake-quant path."""
     converted = []
     for path, mod in list(named_modules(model)):
         if any(path.startswith(p + ".") for p in converted):
@@ -368,6 +512,9 @@ def convert_integer_inference(model: nn.Module) -> nn.Module:
             if isinstance(mod, QuantMultiheadAttention):
                 set_module(model, path, Int8InferenceAttention(mod))
                 converted.append(path)
+            elif (isinstance(mod, _QuantConvNd)
+                  and mod.weight_quant.quant_type == QuantType.INT):
+                set_module(model, path, Int8InferenceConv(mod))
             elif not (isinstance(mod, QuantLinear)
                       and mod.weight_quant.quant_type == QuantType.INT):
                 continue

@@ -12,7 +12,10 @@ tensor stored (1, ..., 1, O) goes to the port's (O, 1, ..., 1). A module
 that the JAX model shares between several places (QuantLSTM's hidden-state
 and cell-state quantizers) appears once in its state, at its first path,
 and fills the one module the port shares the same way. The JAX model's random-number state (``rngs.*``)
-has no counterpart and is skipped.
+has no counterpart and is skipped. Lists of modules (``nnx.List``: CNV's
+``conv_features``, QuartzNet's ``encoder``/``convs``/``bns``/``acts``,
+MobileNet's ``features``) carry by index, a per-channel activation
+threshold (C,) and a BatchNorm's running statistics as they are.
 """
 
 from typing import Dict

@@ -217,6 +217,10 @@ class _QuantConvNd(QuantWBIOL):
     def reduce_size(self) -> int:
         return self._fan_in
 
+    @property
+    def keeps_channels(self) -> bool:
+        return self.groups == self.in_channels == self.out_channels
+
     def output_channel_view(self, v: torch.Tensor) -> torch.Tensor:
         """A per-output-channel value as (O, 1, ...): the channel axis of
         the (N, O, *spatial) output."""

@@ -1,5 +1,5 @@
 """Quant pooling (port of ``brevitas_tpu/nn/pool.py``; ported: the max
-pools).
+pools and the truncating average pool).
 
 Max pooling is monotone in each element, so a quantized input's grid passes
 through: with ``return_quant_tensor`` the output carries the input's scale,
@@ -9,16 +9,61 @@ zero point and bit width, and the next layer sees them. Padding is
 padding goes to ``F.pad`` first (``max_pool`` limits its own to half the
 window).
 
-Left out: the truncating ``QuantAvgPool2d`` and its adaptive form (slice 7).
+``QuantAvgPool2d`` keeps integer semantics: the window sum is an accumulator
+whose bit width grows by ``ceil(log2(window))``, and a truncating quantizer
+floors it back to the output width. The truncation's scale, ``2 ** (acc_bw
+- out_bw)``, stands in for the division by the window: a 7 x 7 window
+divides by 64, not 49, as in the JAX package. The sum is formed in float64
+and rounded once, so the card and a CPU copy agree; the truncation's first
+rounding recovers the exact integer sum of the codes. Without a grid (or a
+truncating quantizer) the pool returns the plain mean.
+
+Left out: the adaptive average pool (slice 11).
 """
 
 import dataclasses
+import math
+from typing import Optional
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
 from brevitas_tpu_torch.nn.conv import _tuple, padding_spec, resolve_pads
 from brevitas_tpu_torch.nn.quant_layer import QuantLayerMixin
+from brevitas_tpu_torch.quant.config import QuantConfig
+from brevitas_tpu_torch.quant.presets import TruncTo8bit
+from brevitas_tpu_torch.quant.quantizers import TruncQuantizer
+from brevitas_tpu_torch.quant_tensor import QuantTensor
+
+
+class QuantAvgPool2d(QuantLayerMixin, nn.Module):
+    """(N, C, H, W) average pool, VALID, with truncating re-quantization."""
+
+    def __init__(self, kernel_size, stride=None,
+                 trunc_quant: Optional[QuantConfig] = TruncTo8bit,
+                 return_quant_tensor: bool = False):
+        super().__init__()
+        self.kernel_size = _tuple(kernel_size, 2)
+        self.stride = _tuple(stride, 2) if stride is not None else self.kernel_size
+        self.trunc_quant = TruncQuantizer(trunc_quant) if trunc_quant else None
+        self.return_quant_tensor = return_quant_tensor
+
+    def forward(self, x):
+        qt = self.unpack_input(x)
+        v = qt.value
+        summed = F.avg_pool2d(v.double(), self.kernel_size, self.stride,
+                              divisor_override=1).to(v.dtype)
+        elems = math.prod(self.kernel_size)
+        if qt.scale is not None and qt.bit_width is not None and self.trunc_quant is not None:
+            acc_bw = qt.bit_width + math.ceil(math.log2(elems))
+            acc = QuantTensor(summed, qt.scale, qt.zero_point, acc_bw, signed=qt.signed,
+                              training=qt.training)
+            return self.pack_output(self.trunc_quant(acc))
+        # a divisor on the device: CUDA multiplies by the reciprocal of a
+        # Python number
+        return self.pack_output(QuantTensor(summed / torch.full_like(summed, elems),
+                                            training=qt.training))
 
 
 class _QuantMaxPoolNd(QuantLayerMixin, nn.Module):

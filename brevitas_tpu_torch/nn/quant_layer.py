@@ -9,7 +9,8 @@ With ``compute_dtype`` set (``utils.set_compute_dtype``) and INT input
 and weight grids of at most 9 bits with integral zero points, the layer
 feeds the integer codes ``value / scale`` (exact small integers, lossless in
 bf16) to its product and rescales the float32 result by the output scale:
-the code-domain branch.
+the code-domain branch. A per-channel input scale arrives as (C, 1, ...)
+against the input's channel axis and reaches depthwise convs only.
 
 Left out: the cached inference weight, accumulator-aware (A2Q) weights and
 the PTQ hooks.
@@ -95,6 +96,10 @@ class QuantWBIOL(QuantLayerMixin, nn.Module):
     # see utils.set_compute_dtype
     compute_dtype: Optional[torch.dtype] = None
 
+    # True where output channel c is formed from input channel c alone (a
+    # depthwise conv), so a per-channel input scale is per output channel
+    keeps_channels: bool = False
+
     def output_channel_view(self, v: torch.Tensor) -> torch.Tensor:
         """A per-output-channel value in the shape that broadcasts against
         the output's channel axis: (O,) for the last axis (a linear's, an
@@ -123,6 +128,11 @@ class QuantWBIOL(QuantLayerMixin, nn.Module):
             w_scale = quant_weight.scale
             if w_scale.ndim > 1:
                 w_scale = self.output_channel_view(w_scale)
+            if quant_input.scale.numel() > 1 and not self.keeps_channels:
+                # a per-channel input grid (C, 1, ...) is a per-output-channel
+                # grid only where output channel c sums input channel c alone
+                raise ValueError(f"{type(self).__name__}: a per-channel input grid needs a "
+                                 "depthwise layer")
             output_scale = w_scale * quant_input.scale
         if quant_input.signed is not None:
             output_signed = quant_input.signed or quant_weight.signed

@@ -62,7 +62,7 @@ from brevitas_tpu_torch.kernels.lstm_cell import (
 from brevitas_tpu_torch.nn.linear import compute_dtype_matmul
 from brevitas_tpu_torch.ops import round_ste, sigmoid_f64, tanh_f64, tensor_clamp, tensor_clamp_ste
 from brevitas_tpu_torch.ops.numeric import max_int, min_int
-from brevitas_tpu_torch.quant.config import QuantConfig
+from brevitas_tpu_torch.quant.config import QuantConfig, QuantType
 from brevitas_tpu_torch.quant.presets import (
     Int8ActPerTensorFloat,
     Int8WeightPerTensorFloat,
@@ -139,7 +139,9 @@ class _QuantLSTMLayer(nn.Module):
         self.w_ih = nn.Parameter(uniform((input_size, 4 * h)))
         self.w_hh = nn.Parameter(uniform((h, 4 * h)))
         self.bias = nn.Parameter(torch.zeros(4 * h)) if use_bias else None
-        self.bias_quant = BiasQuantizer(bias_quant if bias_quant is not None else NoneBiasQuant)
+        if bias_quant is not None and QuantType(bias_quant.quant_type) != QuantType.NONE:
+            raise NotImplementedError("QuantLSTM bias quantization is not ported yet")
+        self.bias_quant = BiasQuantizer(NoneBiasQuant)
         wcfg = NoneWeightQuant if weight_quant is None else weight_quant
         self.w_ih_quants = nn.ModuleList([
             ParameterQuantizer(wcfg, self.w_ih.detach()[:, g * h:(g + 1) * h], channel_axis=1)

@@ -28,6 +28,16 @@ class _CeilSte(torch.autograd.Function):
         return g
 
 
+class _FloorSte(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return torch.floor(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
 class _TensorClampSte(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, min_val, max_val):
@@ -70,6 +80,11 @@ def round_ste(x: torch.Tensor) -> torch.Tensor:
 def ceil_ste(x: torch.Tensor) -> torch.Tensor:
     """Ceil; straight-through gradient."""
     return _CeilSte.apply(x)
+
+
+def floor_ste(x: torch.Tensor) -> torch.Tensor:
+    """Floor; straight-through gradient."""
+    return _FloorSte.apply(x)
 
 
 def tensor_clamp_ste(x: torch.Tensor, min_val, max_val) -> torch.Tensor:

@@ -68,6 +68,10 @@ class QuantConfig:
     high_percentile_q: Optional[float] = None
     zero_point_impl: ZeroPointImplType = ZeroPointImplType.ZERO
     quant_delay_steps: int = 0
+    # bias quantizers: the scale (input scale x weight scale) and the bit
+    # width (the accumulator's) come from the layer at each call
+    requires_input_scale: bool = False
+    requires_input_bit_width: bool = False
 
     def let(self, **overrides) -> "QuantConfig":
         """Functional update (``dataclasses.replace``)."""

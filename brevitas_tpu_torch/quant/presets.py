@@ -1,9 +1,10 @@
 """Predefined quantizer configs (port of ``brevitas_tpu/quant/presets.py``).
 
-Ported: the ones this slice's serving path uses. Compose variants with
+Ported: the ones the port's models use. Compose variants with
 ``.let(...)``.
 """
 
+from brevitas_tpu_torch.core.restrict import FloatToIntImpl
 from brevitas_tpu_torch.core.stats import StatsOp
 from brevitas_tpu_torch.quant.config import QuantConfig, QuantType, ScalingImplType
 
@@ -24,6 +25,14 @@ Int4WeightPerChannelFloat = Int8WeightPerChannelFloat.let(bit_width=4)
 
 Int8ActPerTensorFloat = _INT.let(bit_width=8, **_PARAM_FROM_PERCENTILE)
 Uint8ActPerTensorFloat = _UINT.let(bit_width=8, **_PARAM_FROM_PERCENTILE)
+
+# a bias on the accumulator's grid: its scale and bit width come from the
+# layer (input scale x weight scale, the accumulator bit width)
+IntBias = _INT.let(requires_input_scale=True, requires_input_bit_width=True)
+
+# accumulator truncation (QuantAvgPool2d): drop low bits by flooring
+TruncTo8bit = QuantConfig(quant_type=QuantType.INT, bit_width=8,
+                          float_to_int=FloatToIntImpl.FLOOR)
 
 NoneWeightQuant = QuantConfig(quant_type=QuantType.NONE)
 NoneActQuant = QuantConfig(quant_type=QuantType.NONE)

@@ -7,12 +7,18 @@ two-phase PARAMETER_FROM_STATS scaling of activations
 (``ParameterFromRuntimeStatsScaling``) with its migration to a learned
 parameter (``convert_runtime_stats_to_parameter``); ZERO zero-point; quant
 delay; the INT/NONE weight quantizer, per-tensor or per output channel, and
-activation quantizer, per-tensor, signed or unsigned, with its static grid
-(``ActQuantizer.static_int_params``); the NONE bias quantizer; and the
-``disable_quant`` switch that calibration mode sets. Configs that need
-anything else raise ``NotImplementedError``. On the card a per-tensor
-quantizer's fake-quant is the ``fake_quant`` CUDA kernel
-(``int_fake_quant``).
+activation quantizer, per-tensor or per channel, signed or unsigned, with
+its static grid (``ActQuantizer.static_int_params``); the NONE bias
+quantizer and the INT one on the accumulator's grid (``IntBias``); the
+truncating quantizer of QuantAvgPool2d; and the ``disable_quant`` switch
+that calibration mode sets. Configs that need anything else raise
+``NotImplementedError``. On the card a per-tensor quantizer's fake-quant is
+the ``fake_quant`` CUDA kernel (``int_fake_quant``).
+
+A per-channel activation quantizer holds one scale per channel, (C,) as
+in the JAX package, whose channels-last activations broadcast it as they
+are; the port's activations carry their channels on axis 1, so the scale
+is applied, and carried in the output, as (C, 1, ..., 1).
 
 The JAX package selects the two-phase scaler's branch with ``lax.cond`` on
 a carried counter so it stays inside one jitted step; PyTorch runs eagerly,
@@ -337,23 +343,35 @@ class ParameterQuantizer(nn.Module):
 
 
 class ActQuantizer(nn.Module):
-    """Activation-side quantizer: INT with per-tensor scaling, or NONE."""
+    """Activation-side quantizer: INT with per-tensor or per-channel scaling
+    (``num_channels`` scales over axis 1 of the input), or NONE."""
 
-    def __init__(self, cfg: QuantConfig):
+    def __init__(self, cfg: QuantConfig, num_channels: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         self.quant_type = QuantType(cfg.quant_type)
         self.disable_quant = False  # calibration mode: collect, pass the float value
+        self.per_channel = False
         if self.quant_type == QuantType.NONE:
             return
         _check_int(self.quant_type)
-        if cfg.scaling_per_output_channel:
-            raise NotImplementedError("per-channel activation scaling is not ported yet")
+        self.per_channel = bool(cfg.scaling_per_output_channel)
+        if self.per_channel and num_channels is None:
+            raise ValueError("per-channel act quant requires num_channels")
         self._float_to_int = R.float_to_int_fn(cfg.float_to_int)
         self.bit_width_impl = BitWidth(cfg)
-        self.scaling = build_scaling(cfg, ())
+        self.scaling = build_scaling(cfg, (num_channels,) if self.per_channel else ())
         self.zero_point = ZeroPoint(cfg)
         self.delay = QuantDelay(cfg.quant_delay_steps)
+
+    def _stats_view(self, x: torch.Tensor) -> torch.Tensor:
+        return stats_view(x, self.per_channel, channel_axis=1)
+
+    def _channel_view(self, scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """A per-channel (C,) scale as (C, 1, ..., 1) against ``x``'s axis 1."""
+        if not self.per_channel:
+            return scale
+        return scale.reshape(-1, *(1,) * (x.ndim - 2))
 
     def static_int_params(self):
         """``(scale, bit_width)`` when this INT quantizer's grid does not
@@ -366,7 +384,7 @@ class ActQuantizer(nn.Module):
         if self.quant_type == QuantType.NONE:
             return "identity"
         cfg = self.cfg
-        if self.disable_quant or cfg.quant_delay_steps > 0:
+        if self.disable_quant or self.per_channel or cfg.quant_delay_steps > 0:
             return None
         if not isinstance(self.scaling, (ConstScaling, ParameterScaling)):
             return None
@@ -379,7 +397,7 @@ class ActQuantizer(nn.Module):
         cfg = self.cfg
         if self.quant_type == QuantType.NONE:
             return QuantTensor(x, training=self.training)
-        view = stats_view(x)
+        view = self._stats_view(x)
         if self.disable_quant:
             # calibration mode: the scaling statistics advance, the float
             # value passes unchanged
@@ -388,6 +406,7 @@ class ActQuantizer(nn.Module):
         bit_width = self.bit_width_impl()
         scale = Qf.rescaling_scale(self.scaling(view), bit_width, signed=cfg.signed,
                                    narrow_range=cfg.narrow_range)
+        scale = self._channel_view(scale, x)
         zp = self.zero_point(view, scale, bit_width)
         y = int_fake_quant(x, scale, zp, bit_width, cfg, self._float_to_int)
         return QuantTensor(self.delay(x, y), scale, zp, bit_width,
@@ -395,18 +414,62 @@ class ActQuantizer(nn.Module):
 
 
 class BiasQuantizer(nn.Module):
-    """Bias quantizer: NONE only (the bnn_pynq models have no bias)."""
+    """Bias quantizer: NONE, or INT on the accumulator's grid, its scale the
+    layer's input scale times its weight scale (``requires_input_scale``)
+    and its bit width the accumulator's (``requires_input_bit_width``). A
+    scale of the bias's own statistics, or a constant bit width, is not
+    ported."""
 
     def __init__(self, cfg: QuantConfig):
         super().__init__()
         self.cfg = cfg
         self.quant_type = QuantType(cfg.quant_type)
-        if self.quant_type != QuantType.NONE:
-            raise NotImplementedError("bias quantization is not ported yet")
+        self.disable_quant = False
+        if self.quant_type == QuantType.NONE:
+            return
+        _check_int(self.quant_type)
+        if not cfg.requires_input_scale:
+            raise NotImplementedError("a bias scale from the bias's own statistics is not "
+                                      "ported yet")
+        if not cfg.requires_input_bit_width:
+            raise NotImplementedError("a bias bit width other than the accumulator's is "
+                                      "not ported yet")
+        self._float_to_int = R.float_to_int_fn(cfg.float_to_int)
 
     def forward(self, b: torch.Tensor, input_scale=None,
                 input_bit_width=None) -> QuantTensor:
-        return QuantTensor(b)
+        cfg = self.cfg
+        if self.quant_type == QuantType.NONE or self.disable_quant:
+            return QuantTensor(b)
+        if input_bit_width is None:
+            raise ValueError("the bias quantizer needs the accumulator bit width")
+        if input_scale is None:
+            raise ValueError("the bias quantizer needs the accumulator scale "
+                             "(input scale x weight scale)")
+        # a 1-D bias takes a per-channel accumulator scale flattened
+        scale = input_scale.reshape(-1) if b.ndim == 1 and input_scale.ndim > 1 \
+            else input_scale
+        y = int_fake_quant(b, scale, 0.0, input_bit_width, cfg, self._float_to_int)
+        return QuantTensor(y, scale, 0.0, input_bit_width, signed=cfg.signed)
+
+
+class TruncQuantizer(nn.Module):
+    """Accumulator truncation (QuantAvgPool2d after its window sum): the
+    input's codes lose the low bits that take its bit width down to the
+    configured one; the scale stays."""
+
+    def __init__(self, cfg: QuantConfig):
+        super().__init__()
+        self.cfg = cfg
+        self._float_to_int = R.float_to_int_fn(cfg.float_to_int)
+        self.bit_width_impl = BitWidth(cfg)
+
+    def forward(self, qt: QuantTensor) -> QuantTensor:
+        out_bw = self.bit_width_impl()
+        y = Qf.trunc_int_quant(qt.value, qt.scale, qt.zero_point, qt.bit_width, out_bw,
+                               float_to_int=self._float_to_int)
+        return QuantTensor(y, qt.scale, qt.zero_point, out_bw, signed=qt.signed,
+                           training=qt.training)
 
 
 def convert_runtime_stats_to_parameter(root: nn.Module) -> int:

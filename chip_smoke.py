@@ -143,6 +143,32 @@ Phases; any failure exits non-zero and prints no result:
              "CNV_4W4A", "--dataset", "synthetic", "--epochs", "1"]) on the
              card, its launches counted (CNV_4W4A's const-scale weights
              launch fake_quant too: 18 and 17 a step).
+12e. exact_route - Int8InferenceConv's exact integer route at QuartzNet's
+             depthwise shapes (k 33 at stride 2 and 1, k 75, k 87 at dilation
+             2; float32: the worst-case sum stays below 2^24) and at CNV's
+             256-channel 3 x 3 (float64), on full-range int8 codes: every sum
+             equal to a float64 conv on the CPU; timed.
+12f. quartznet_serving - bench.py's quartznet_int8_serving leg at full width:
+             quartznet_15x5() (random weights, seed 0) calibrated by one
+             train-mode forward on bench's features (4 x 256 x 64, in the
+             port's (B, C, T)), converted (171 Int8InferenceConv twins: 94
+             pointwise on int8_matmul, 77 depthwise on the exact route),
+             served 8 batches: 94 int8_matmul and 185 fake_quant launches a
+             forward. A CPU copy: each twin fed the card's input bit for bit
+             (the first depthwise conv, on raw features, within (K + 2)
+             2^-24 of sum |x w|), BatchNorms within 1e-6, logits within 1e-5
+             with codes set to the card's at certified ties. ms a batch,
+             sequences/s, device busy time and idle share.
+12g. mobilenet_qat - bench.py's mobilenetv1_4b_qat leg at full width, nothing
+             cut: quant_mobilenet_v1(bit_width=4), batch 32 at 224 px drawn as
+             _scanned_train draws them, softmax cross-entropy, Adam lr 1e-3,
+             no clipping; a warm-up and 3 timed steps in bf16 operands and in
+             float32. 17 fake_quant and 17 fake_quant_backward launches a
+             step. A copy on the card on the plain chain: the warm-up's loss
+             the same bits, and every gradient but those the kernel's scale
+             sums reach (the 15 per-tensor learned thresholds and the head's
+             weight: within 1e-3 of their largest); a CPU copy's first loss
+             within 1e-5, its codes set to the card's at certified ties.
 13. report - one {"kernels": [...]} line; the last line is
              {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -341,7 +367,8 @@ def phase_kernels(dev, peaks):
           "host's launch overhead)")
     main = ([(m, k, n) for m in SHAPES_M for k, n in SHAPES_KN]
             + [(m, k, n) for m in LLAMA_M for k, n in LLAMA_KN]
-            + [(SERVE_DECODE["batch"], k, n) for k, n in SERVE_DECODE_KN])
+            + [(SERVE_DECODE["batch"], k, n) for k, n in SERVE_DECODE_KN]
+            + [(QN_M, k, n) for k, n in QUARTZNET_KN_COUNT])
     edges = {(m, k, n, "int8") for m, k, n in INT8_EDGE_SHAPES} | {
         (m, k, n, "w4a16") for m, k, n in W4A16_EDGE_SHAPES}
     shapes = INT8_EDGE_SHAPES + [s for s in W4A16_EDGE_SHAPES if s not in INT8_EDGE_SHAPES] \
@@ -364,11 +391,16 @@ def phase_kernels(dev, peaks):
             t_k = cuda_ms(lambda: int8_matmul(x, w, xs, ws, b))
             t_call = cuda_ms(lambda: int8_matmul(x, w, xs, ws, b), device_only=False)
             t_p = cuda_ms(lambda: int8_matmul_reference(x, w, xs, ws, b))
-            if m > 16 and k % 8 == 0 and n % 8 == 0:
-                t_l = cuda_ms(lambda: torch._int_mm(x, w).to(torch.float32) * (xs * ws) + b)
-                lib = f"{t_l:.4f}"
+            if m > 16 and k % 8 == 0:
+                # torch._int_mm needs N % 8 == 0: a head of another N (LFC's
+                # 10, QuartzNet's decoder's 29) is timed on weights stored
+                # padded with zero columns, the padding's output dropped
+                w_l = torch.nn.functional.pad(w, (0, -n % 8))
+                t_l = cuda_ms(lambda: torch._int_mm(x, w_l)[:, :n].to(torch.float32)
+                              * (xs * ws) + b)
+                lib = f"{t_l:.4f}" + (f"(N padded to {w_l.shape[1]})" if n % 8 else "")
             else:
-                t_l, lib = None, "n/a(_int_mm needs M>16, K%8=0, N%8=0)"
+                t_l, lib = None, "n/a(_int_mm needs M>16, K%8=0)"
             nbytes = m * k + k * n + 4 + 8 * n + 4 * m * n
             t_b, by = bound(nbytes, 2.0 * m * n * k, bw, int8_peak)
             rows.append(dict(kernel="int8_matmul", m=m, k=k, n=n, ms=t_k, plain_ms=t_p,
@@ -2440,13 +2472,16 @@ def cnv_act_quantizers(model):
 
 
 @contextlib.contextmanager
-def recorded_act_codes(model, store: list):
+def recorded_act_codes(model, store: list, quantizers=None):
     """Forward hooks that keep each activation quantizer's input and output
-    value, in call order."""
+    value, in call order (``quantizers``: the layers to hook, CNV's by
+    default; a layer called twice a forward records twice)."""
     def hook(mod, args, out):
-        store.append((args[0].detach(), out.value.detach()))
+        x = args[0].value if hasattr(args[0], "value") else args[0]
+        store.append((x.detach(), out.value.detach()))
 
-    handles = [q.register_forward_hook(hook) for q in cnv_act_quantizers(model)]
+    quantizers = cnv_act_quantizers(model) if quantizers is None else quantizers
+    handles = [q.register_forward_hook(hook) for q in quantizers]
     try:
         yield
     finally:
@@ -2455,35 +2490,38 @@ def recorded_act_codes(model, store: list):
 
 
 @contextlib.contextmanager
-def forced_act_codes(model, want: list, flips: list):
+def forced_act_codes(model, want: list, flips: list, quantizers=None):
     """Forward hooks on a CPU copy: each activation quantizer's output where
-    it differs from the card's (``want``, from recorded_act_codes) must be a
-    certified .5 tie (CNV_TIE_SHARE), and then takes the card's value, so the
-    rest of the forward sees the card's codes. Appends the count to
-    ``flips``."""
+    it differs from the card's (``want``, from recorded_act_codes with the
+    same ``quantizers``) must be a certified .5 tie (CNV_TIE_SHARE), and then
+    takes the card's value, so the rest of the forward sees the card's
+    codes. Appends the count to ``flips``, one entry a call."""
     from brevitas_tpu_torch.quant_tensor import QuantTensor
 
     def hook(mod, args, out):
         i = len(flips)
         want_x, want_y = (v.cpu() for v in want[i])
-        got_x, got_y = args[0].detach(), out.value.detach()
+        got_x = (args[0].value if hasattr(args[0], "value") else args[0]).detach()
+        got_y = out.value.detach()
         differ = got_y != want_y
         flips.append(int(differ.sum()))
         if not flips[-1]:
             return out
-        s = float(out.scale)
+        # a per-channel scale broadcasts over its channel axis
+        s = torch.broadcast_to(out.scale.detach(), got_y.shape)[differ]
         c_got, c_want = torch.round(got_y[differ] / s), torch.round(want_y[differ] / s)
         half = (c_got + c_want) / 2
         ok = (((c_got - c_want).abs() == 1)
               & ((got_x[differ] / s - half) * (want_x[differ] / s - half) <= 0)
               & ((got_x[differ] - want_x[differ]).abs() <= CNV_TIE_SHARE * want_x.abs().max()))
         if not bool(ok.all()):
-            raise AssertionError(f"cnv_qat: quantizer {i}: {int((~ok).sum())} codes of the CPU "
-                                 "copy differ from the card's away from a .5 tie")
+            raise AssertionError(f"act codes: quantizer call {i}: {int((~ok).sum())} codes of "
+                                 "the CPU copy differ from the card's away from a .5 tie")
         return QuantTensor(want_y, out.scale, out.zero_point, out.bit_width, signed=out.signed,
                            training=out.training)
 
-    handles = [q.register_forward_hook(hook) for q in cnv_act_quantizers(model)]
+    quantizers = cnv_act_quantizers(model) if quantizers is None else quantizers
+    handles = [q.register_forward_hook(hook) for q in quantizers]
     try:
         yield
     finally:
@@ -2639,6 +2677,437 @@ def phase_bnn_pynq(dev) -> dict:
     return out
 
 
+# bench.py's quartznet_int8_serving leg (bench.py:525-556): quartznet_15x5()
+# at its published widths, batch 4, 256 frames, 64 features, random weights
+# from seed 0; calibrated by one train-mode forward, then eval and
+# convert_integer_inference
+QN_BATCH, QN_FRAMES, QN_FEATURES = 4, 256, 64
+QN_SERVED_BATCHES = 8
+# after the stride-2 prologue every pointwise conv is a GEMM of M = 4 x 128
+# rows; its (K, N) and how many a forward launches: the prologue's, 6 groups
+# at 256 filters (5 blocks and the residual each), the widening group's
+# first block and residual, the other 8 groups at 512 and the first
+# epilogue, the 1 x 1 epilogue, the decoder
+QN_M = QN_BATCH * QN_FRAMES // 2
+QUARTZNET_KN_COUNT = {(64, 256): 1, (256, 256): 36, (256, 512): 2, (512, 512): 53,
+                      (512, 1024): 1, (1024, 29): 1}
+QN_INT8_PER_FORWARD = sum(QUARTZNET_KN_COUNT.values())  # 94
+QN_TWINS = QN_INT8_PER_FORWARD + 77  # and 77 depthwise convs on the exact route
+# fake_quant launches a forward: per block, a QuantHardTanh a separable conv,
+# a QuantReLU a repeat and the shared residual quantizer twice
+QN_FQ_PER_FORWARD = 2 + 15 * (5 + 5 + 2) + 2 + 1  # 185
+# the exact integer route at QuartzNet's depthwise shapes and one CNV 3 x 3
+# at 8 bits (whose worst case passes 2^24: float64): (name, spatial dims, in
+# and out channels, kernel, stride, dilation, groups, size, batch)
+EXACT_ROUTE_SHAPES = [("quartznet_k33_s2", 1, 64, 33, 2, 1, 64, 256, QN_BATCH),
+                      ("quartznet_k33", 1, 256, 33, 1, 1, 256, 128, QN_BATCH),
+                      ("quartznet_k75", 1, 512, 75, 1, 1, 512, 128, QN_BATCH),
+                      ("quartznet_k87_d2", 1, 512, 87, 1, 2, 512, 128, QN_BATCH),
+                      ("cnv_3x3_256", 2, 256, 3, 1, 1, 1, 5, 64)]
+
+
+def act_layers(model):
+    """A model's quantized activation layers (QuantReLU, QuantHardTanh, ...)."""
+    from brevitas_tpu_torch.nn import QuantNonLinearActLayer
+
+    return [m for m in model.modules() if isinstance(m, QuantNonLinearActLayer)]
+
+
+def check_exact_route(dev) -> list:
+    """Int8InferenceConv's exact integer route (nn.conv.conv_nd of the codes
+    in the dtype conv_acc_dtype picks) on full-range int8 input codes and
+    8-bit weight codes, against a float64 conv of the same codes on the CPU:
+    equal in every element. Times the route on the card."""
+    from brevitas_tpu_torch.graph.convert_int import Int8InferenceConv
+    from brevitas_tpu_torch.nn import QuantConv1d, QuantConv2d
+    from brevitas_tpu_torch.quant import presets
+
+    out = []
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for name, dims, ch, k, stride, dil, groups, size, batch in EXACT_ROUTE_SHAPES:
+        pad = (k // 2) * dil if dims == 1 else 0
+        conv = (QuantConv1d if dims == 1 else QuantConv2d)(
+            ch, ch, k, stride=stride, dilation=dil, groups=groups,
+            padding=((pad, pad),) * dims, use_bias=False,
+            weight_quant=presets.Int8WeightPerChannelFloat,
+            generator=torch.Generator().manual_seed(6), device=dev)
+        conv.eval()
+        twin = Int8InferenceConv(conv)
+        x = torch.randint(-128, 128, (batch, ch) + (size,) * dims, generator=gen, device=dev,
+                          dtype=torch.int8)
+        got = twin._conv(x)
+        torch.cuda.synchronize()
+        f = torch.nn.functional.conv1d if dims == 1 else torch.nn.functional.conv2d
+        want = f(x.cpu().double(), twin.w_int.cpu().double(), stride=stride,
+                 padding=pad, dilation=dil, groups=groups)
+        inexact = int((got.cpu().double() != want).sum())
+        fan_in = conv.reduce_size
+        row = {"shape": name, "fan_in": fan_in, "worst_case": fan_in * 128 * 127,
+               "route": str(twin.acc_dtype).replace("torch.", ""), "inexact": inexact,
+               "elements": want.numel(), "max_abs_sum": float(want.abs().max()),
+               "ms": cuda_ms(lambda: twin._conv(x), reps=10, inner=3)}
+        out.append(row)
+        print(f"[exact_route] {name}: fan-in {fan_in}, worst case {row['worst_case']:,} "
+              f"(2^24 = {2 ** 24:,}), route {row['route']}, largest |sum| "
+              f"{row['max_abs_sum']:.0f}; {inexact} of {row['elements']} sums differ from a "
+              f"float64 conv on the CPU; {row['ms']:.4f} ms a call on {CARD[0]}")
+        if inexact:
+            raise AssertionError(f"exact_route: {name}: {inexact} integer sums differ")
+        want_route = "float32" if row["worst_case"] < 2 ** 24 else "float64"
+        if row["route"] != want_route:
+            raise AssertionError(f"exact_route: {name} took {row['route']}, not {want_route}")
+    return out
+
+
+def compare_quartznet_with_cpu_copy(model, x: torch.Tensor, what: str) -> dict:
+    """Serve ``x`` on the card and on a CPU copy of the converted model. Each
+    conv twin and BatchNorm of the copy, fed the card's input to it, is held
+    to the card's output: the integer twins bit for bit, the first
+    depthwise conv (the float path: no grid on the raw features) within (K +
+    2) 2^-24 of sum |x w|, the BatchNorms within 1e-6 of their largest
+    output. Then the copy runs end to end, its activation codes set to the
+    card's at certified .5 ties (forced_act_codes), and its logits are held
+    within 1e-5 of the card's largest."""
+    from brevitas_tpu_torch.graph.convert_int import Int8InferenceConv
+    from brevitas_tpu_torch.models.common import BatchNorm
+    from brevitas_tpu_torch.nn.conv import conv_nd
+
+    cpu_model = copy.deepcopy(model).to("cpu")
+    seen, card_codes = [], []
+    hooks = [mod.register_forward_hook(
+        lambda mod, args, out, name=name: seen.append((name, args[0], out)))
+        for name, mod in model.named_modules() if isinstance(mod, (Int8InferenceConv, BatchNorm))]
+    with torch.no_grad(), recorded_act_codes(model, card_codes, act_layers(model)):
+        logits = model(x.to(next(model.buffers()).device))
+        torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    exact = float_path = bn_exact = 0
+    worst = {"float_path": 0.0, "batch_norm": 0.0}
+    with torch.no_grad():
+        for name, inp, out in seen:
+            mod = cpu_model.get_submodule(name)
+            want, got = mod(_to_cpu(inp)), out.cpu()
+            if isinstance(mod, BatchNorm):
+                diff = float((got - want).abs().max())
+                worst["batch_norm"] = max(worst["batch_norm"], diff / float(want.abs().max()))
+                bn_exact += torch.equal(got, want)
+                if diff > 1e-6 * float(want.abs().max()):
+                    raise AssertionError(f"{what}: BatchNorm {name} is {diff:.3g} from its copy")
+            elif getattr(inp, "scale", None) is None:
+                # the float path: a float32 sum of K terms in another order
+                v = _to_cpu(inp).double().abs()
+                w = (mod.w_int.double() * mod.w_scale.double().reshape(-1, 1, 1)).abs()
+                mass = conv_nd(v, w, mod.stride, mod._pads(v.shape[2:]), mod.dilation, mod.groups)
+                k = mod.w_int[0].numel()
+                ratio = float(((got - want).abs().double() / ((k + 2) * 2.0 ** -24 * mass)
+                               .clamp_min(1e-300)).max())
+                worst["float_path"] = max(worst["float_path"], ratio)
+                float_path += 1
+                if ratio > 1.0:
+                    raise AssertionError(f"{what}: float-path twin {name} off its bound: {ratio}")
+            else:
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{what}: integer twin {name} disagrees with its CPU "
+                                         f"copy: max {float((got - want).abs().max())}")
+                exact += 1
+        flips = []
+        with forced_act_codes(cpu_model, card_codes, flips, act_layers(cpu_model)):
+            cpu_logits = cpu_model(x.cpu())
+    got = logits.cpu()
+    diff = float((got - cpu_logits).abs().max())
+    span = float(cpu_logits.abs().max())
+    out = {"integer_twins_bit_for_bit": exact, "float_path_twins": float_path,
+           "float_path_worst_share_of_bound": worst["float_path"],
+           "batch_norms_bit_for_bit": f"{bn_exact} of {sum(isinstance(m, BatchNorm) for m in cpu_model.modules())}",
+           "batch_norm_worst_rel": worst["batch_norm"], "cpu_tie_flips": sum(flips),
+           "logits_max_diff": diff, "logits_bit_for_bit": torch.equal(got, cpu_logits)}
+    print(f"[{what}] card vs CPU copy, layer by layer: {exact} integer twins bit for bit, "
+          f"{float_path} float-path twin at {worst['float_path']:.3g} of its bound, "
+          f"BatchNorms {out['batch_norms_bit_for_bit']} bit for bit (worst {worst['batch_norm']:.3g} "
+          f"of the largest); end to end with {sum(flips)} codes set to the card's at certified "
+          f"ties: logits max |diff| {diff:.3g} of span {span:.3g}, bit for bit "
+          f"{out['logits_bit_for_bit']}")
+    if not torch.isfinite(got).all() or diff > 1e-5 * span:
+        raise AssertionError(f"{what}: logits disagree with the CPU copy")
+    return out
+
+
+def phase_quartznet_serving(dev) -> dict:
+    """bench's quartznet_int8_serving leg on the card (see QN_*): one
+    counted forward (94 int8_matmul launches, 185 fake_quant, nothing else
+    counted), QN_SERVED_BATCHES served batches timed on the host clock with
+    the features' copy in and the logits' copy out, the CPU-copy comparison
+    and a profile of one batch."""
+    from brevitas_tpu_torch import graph as G
+    from brevitas_tpu_torch.graph.convert_int import Int8InferenceConv
+    from brevitas_tpu_torch.models import quartznet_15x5
+
+    what = "quartznet_serving"
+    gc.collect()
+    model = quartznet_15x5(generator=torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+
+    def features():
+        # bench's draw, (B, T, C), in the port's (B, C, T)
+        return torch.from_numpy(np.ascontiguousarray(
+            rng.random((QN_BATCH, QN_FRAMES, QN_FEATURES), dtype=np.float32).transpose(0, 2, 1)))
+
+    with torch.no_grad():
+        model(features().to(dev))  # train mode: the BatchNorm statistics move
+    model.eval()
+    G.convert_integer_inference(model)
+    twins = [m for m in model.modules() if isinstance(m, Int8InferenceConv)]
+    routes = sorted({str(t.acc_dtype) for t in twins if not t.pointwise})
+    n_pw = sum(t.pointwise for t in twins)
+    print(f"[{what}] {len(twins)} Int8InferenceConv twins: {n_pw} pointwise on int8_matmul, "
+          f"{len(twins) - n_pw} on the exact route in {routes}")
+    if len(twins) != QN_TWINS or n_pw != QN_INT8_PER_FORWARD or routes != ["torch.float32"]:
+        raise AssertionError(f"{what}: twins {len(twins)} / {n_pw} pointwise / {routes}")
+    batches = [features() for _ in range(QN_SERVED_BATCHES)]
+    _reset_launch_counts()
+    with torch.no_grad():
+        logits = model(batches[0].to(dev))
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    _record_path(what, counts)
+    want = {k: 0 for k in counts}
+    want.update(int8_matmul=QN_INT8_PER_FORWARD, fake_quant=QN_FQ_PER_FORWARD)
+    print(f"[{what}] one forward: launches {counts}")
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    if tuple(logits.shape) != (QN_BATCH, 29, QN_FRAMES // 2) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{what}: logits of shape {tuple(logits.shape)} or not finite")
+    with torch.no_grad():
+        model(batches[0].to(dev)).cpu()
+        t0 = time.perf_counter()
+        for x in batches:
+            model(x.to(dev)).cpu()
+        ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    out = {"ms_per_batch": ms, "sequences_per_s": QN_BATCH / ms * 1e3,
+           "launches_per_forward": counts}
+    print(f"[{what}] {len(batches)} batches of {QN_BATCH} x {QN_FRAMES} frames: {ms:.3f} ms a "
+          f"batch (host clock, copies in and out included), {out['sequences_per_s']:.1f} "
+          f"sequences/s, on {CARD[0]}")
+    out["cpu_copy"] = compare_quartznet_with_cpu_copy(model, batches[1], what)
+    x = batches[2]
+    out["profile"] = profile_steps(lambda: model(x.to(dev)).cpu(), what,
+                                   f"batch of {QN_BATCH}", n=5)
+    return out
+
+
+# bench.py's mobilenetv1_4b_qat leg (bench.py:682-703, _scanned_train
+# :226-262): quant_mobilenet_v1(bit_width=4), batch 32 at 224 px drawn as
+# _scanned_train draws them (transposed to NCHW), softmax cross-entropy,
+# Adam lr 1e-3, no weight clipping; one scanned epoch is 3 steps
+MN_BATCH, MN_PX, MN_STEPS, MN_LR = 32, 224, 3, 1e-3
+MN_CPU_LOSS_RTOL = 1e-5
+# fake_quant launches a step: the 13 depthwise ReLUs, the last stage's 2
+# pointwise ReLUs, the head's per-tensor weight and its IntBias, forward and
+# backward (the per-channel weights and ReLUs take the plain chain)
+MN_FQ = (17, 17)
+# of its largest element: a gradient reached by the fake_quant kernel's
+# scale sums against the plain chain's autograd sums on the card
+MN_SCALE_GRAD_RTOL = 1e-3
+
+
+def mobilenet_step(model, opt, x, y) -> torch.Tensor:
+    """One step of bench's leg: softmax cross-entropy, Adam, no clipping."""
+    opt.zero_grad(set_to_none=True)
+    loss = torch.nn.functional.cross_entropy(model(x), y)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def mobilenet_replay(model, opt, plain, plain_opt, xs, ys) -> list:
+    """The kernel path (``model``, a copy of its state before the timed
+    steps) and the plain chain, one step each in turn: before each step the
+    parameters that differ and by how much, in it the activation codes that
+    differ (the first quantizer call that has one) and the two losses."""
+    def codes_hook(store, name):
+        def hook(mod, args, out):
+            store.append((name, torch.round(out.value.detach() / out.scale.detach())
+                          .to(torch.int16)))
+        return hook
+
+    rows = []
+    for i in range(len(xs)):
+        got_p, want_p = dict(model.named_parameters()), dict(plain.named_parameters())
+        dev_p = {n: float((p.detach() - want_p[n].detach()).abs().max())
+                 for n, p in got_p.items() if not torch.equal(p, want_p[n])}
+        thresholds = {n: v for n, v in dev_p.items() if n.endswith("scaling.value")}
+        codes = ([], [])
+        layers = {m for m in act_layers(model) + act_layers(plain)}
+        handles = [m.register_forward_hook(codes_hook(store, n))
+                   for net, store in zip((model, plain), codes)
+                   for n, m in net.named_modules() if m in layers]
+        try:
+            loss = mobilenet_step(model, opt, xs[i], ys[i])
+            with plain_fake_quant():
+                plain_loss = mobilenet_step(plain, plain_opt, xs[i], ys[i])
+        finally:
+            for h in handles:
+                h.remove()
+        flips = [(n, int((a != b).sum())) for (n, a), (_, b) in zip(*codes)]
+        n_codes = sum(int(c.numel()) for _, c in codes[0])
+        del codes
+        first = next(((j, n, f) for j, (n, f) in enumerate(flips) if f), (None, None, None))
+        rows.append({
+            "step": i, "loss": float(loss), "plain_loss": float(plain_loss),
+            "loss_dev": abs(float(loss) - float(plain_loss)),
+            "params_differing": len(dev_p), "thresholds_differing": len(thresholds),
+            "threshold_max_abs_dev": max(thresholds.values(), default=0.0),
+            "other_params_differing": len(dev_p) - len(thresholds),
+            "other_params_first": sorted(n for n in dev_p if n not in thresholds)[:4],
+            "other_max_abs_dev": max((v for n, v in dev_p.items() if n not in thresholds),
+                                     default=0.0),
+            "code_flips": sum(f for _, f in flips), "codes": n_codes,
+            "first_flip_call": first[0], "first_flip_layer": first[1],
+            "first_flip_count": first[2]})
+    return rows
+
+
+def phase_mobilenet_qat(dev, bf16: bool) -> dict:
+    """bench's mobilenetv1_4b_qat step at full width, nothing cut: a warm-up
+    and MN_STEPS timed steps in bf16 operands (bench's default) or float32.
+    A copy on the card runs the plain chain in every quantizer: the
+    warm-up's loss the same bits, every gradient too but those the kernel's
+    scale sums reach (MN_SCALE_GRAD_RTOL), each later step's loss difference
+    reported, and a replay of the timed steps beside the plain chain names
+    where the two part (mobilenet_replay). A CPU copy's first loss within MN_CPU_LOSS_RTOL, its
+    activation codes set to the card's at certified .5 ties."""
+    from brevitas_tpu_torch.models import quant_mobilenet_v1
+    from brevitas_tpu_torch.utils import set_compute_dtype
+
+    what = f"mobilenet_qat_{'bf16' if bf16 else 'float32'}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = quant_mobilenet_v1(bit_width=4, generator=torch.Generator().manual_seed(0),
+                               device=dev)
+    if bf16:
+        set_compute_dtype(model, torch.bfloat16)
+    plain = copy.deepcopy(model)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    rng = np.random.default_rng(0)
+    xs_np = np.ascontiguousarray(rng.random((MN_STEPS, MN_BATCH, MN_PX, MN_PX, 3),
+                                            dtype=np.float32).transpose(0, 1, 4, 2, 3))
+    ys_np = rng.integers(0, 10, (MN_STEPS, MN_BATCH)).astype(np.int64)
+    xs, ys = torch.from_numpy(xs_np).to(dev), torch.from_numpy(ys_np).to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=MN_LR)
+    plain_opt = torch.optim.Adam(plain.parameters(), lr=MN_LR)
+
+    card_codes = []
+    _reset_launch_counts()
+    with recorded_act_codes(model, card_codes, act_layers(model)):
+        loss0 = mobilenet_step(model, opt, xs[0], ys[0])
+    torch.cuda.synchronize()
+    warm_counts = _launch_counts()
+    with plain_fake_quant():
+        plain0 = mobilenet_step(plain, plain_opt, xs[0], ys[0])
+    torch.cuda.synchronize()
+    if not torch.equal(loss0, plain0):
+        raise AssertionError(f"{what}: first-step loss {float(loss0)} differs from the plain "
+                             f"chain's {float(plain0)}")
+    plain_params = dict(plain.named_parameters())
+    # the kernel's scale gradient is its own sum (within 1e-5 of sum |term|
+    # of the float64 sum: fake_quant_kernels), so the learned thresholds of
+    # the per-tensor quantizers, and the head's weight (its per-tensor scale
+    # comes from its largest element), may differ from the plain chain's
+    # autograd sums in their last bits; every other gradient the same bits
+    from brevitas_tpu_torch.quant.quantizers import ActQuantizer
+
+    summed = {f"{n}.scaling.value" for n, m in model.named_modules()
+              if isinstance(m, ActQuantizer) and m.quant_type.value == "int"
+              and not m.per_channel} | {"output.weight"}
+    differ, sum_dev = [], 0.0
+    for n, p in model.named_parameters():
+        want = plain_params[n].grad
+        if torch.equal(p.grad, want):
+            continue
+        dev_n = float((p.grad - want).abs().max() / want.abs().max())
+        if n not in summed or dev_n > MN_SCALE_GRAD_RTOL:
+            differ.append((n, dev_n))
+        sum_dev = max(sum_dev, dev_n)
+    if differ:
+        raise AssertionError(f"{what}: first-step gradients differ from the plain chain's: "
+                             f"{differ}")
+    flips = []
+    with torch.no_grad(), forced_act_codes(cpu_model, card_codes, flips, act_layers(cpu_model)):
+        cpu_loss = float(torch.nn.functional.cross_entropy(
+            cpu_model(torch.from_numpy(xs_np[0])), torch.from_numpy(ys_np[0])))
+    del card_codes, cpu_model
+    cpu_dev = abs(float(loss0) - cpu_loss) / abs(cpu_loss)
+    print(f"[{what}] warm-up step: loss {float(loss0)} the same bits as the plain chain's; "
+          f"of {len(plain_params)} gradients all but the {len(summed)} reached by the "
+          f"kernel's scale sums the same bits, those within {sum_dev:.3g} of their largest; "
+          f"CPU copy's loss {cpu_loss} (relative {cpu_dev:.3g}) with {sum(flips)} codes set "
+          f"to the card's at certified ties; launches {warm_counts}")
+    if cpu_dev > MN_CPU_LOSS_RTOL:
+        raise AssertionError(f"{what}: the card's first loss is {cpu_dev:.3g} from a CPU copy's")
+    fq_want = {"fake_quant": MN_FQ[0], "fake_quant_backward": MN_FQ[1]}
+    if any(warm_counts[k] != fq_want.get(k, 0) for k in warm_counts):
+        raise AssertionError(f"{what}: launches {warm_counts}, expected {fq_want}")
+
+    # the kernel path's state before the timed steps, replayed beside the
+    # plain chain after them
+    replay = copy.deepcopy(model)
+    replay_opt = torch.optim.Adam(replay.parameters(), lr=MN_LR)
+    replay_opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [mobilenet_step(model, opt, xs[i], ys[i]) for i in range(MN_STEPS)]
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    counts = _launch_counts()
+    _record_path(what, {k: v + warm_counts[k] for k, v in counts.items()})
+    want = {k: MN_STEPS * fq_want.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts} over {MN_STEPS} steps, "
+                             f"expected {want}")
+    replayed = mobilenet_replay(replay, replay_opt, plain, plain_opt, xs, ys)
+    del plain, plain_opt, replay, replay_opt
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: losses {losses}")
+    step_dev = [abs(a - r["plain_loss"]) for a, r in zip(losses, replayed)]
+    replay_same = [a == r["loss"] for a, r in zip(losses, replayed)]
+    for r in replayed:
+        print(f"[{what}] replay of timed step {r['step']} beside the plain chain: before it "
+              f"{r['thresholds_differing']} thresholds differ (max |diff| "
+              f"{r['threshold_max_abs_dev']:.3g}) and {r['other_params_differing']} other "
+              f"parameters (max |diff| {r['other_max_abs_dev']:.3g}: "
+              f"{r['other_params_first']}); in it {r['code_flips']} of {r['codes']} "
+              f"activation codes differ, the first at call {r['first_flip_call']} "
+              f"({r['first_flip_layer']}, {r['first_flip_count']}); loss |diff| "
+              f"{r['loss_dev']:.3g}")
+    ms = total_ms / MN_STEPS
+    out = {"compute_dtype": "bf16" if bf16 else "float32", "ms_per_step": ms,
+           "images_per_s": MN_BATCH / ms * 1e3, "losses": losses, "first_loss": float(loss0),
+           "cpu_first_loss_rel_dev": cpu_dev, "cpu_tie_flips": sum(flips),
+           "scale_grad_max_rel_dev": sum_dev, "loss_dev_per_step": step_dev,
+           "replay_same_losses": replay_same, "replay": replayed,
+           "fake_quant_per_step": counts["fake_quant"] / MN_STEPS,
+           "fake_quant_backward_per_step": counts["fake_quant_backward"] / MN_STEPS}
+    print(f"[{what}] {MN_STEPS} steps: {ms:.3f} ms per step (host clock over the epoch, "
+          f"synchronized at its end), {out['images_per_s']:.1f} images/s, "
+          f"{out['compute_dtype']} operands, on {CARD[0]}; fake_quant launches per step "
+          f"{out['fake_quant_per_step']:g} forward, {out['fake_quant_backward_per_step']:g} "
+          f"backward; kernel path vs plain chain: loss |diff| per step {step_dev}")
+
+    def one_step():
+        mobilenet_step(model, opt, xs[0], ys[0])
+        torch.cuda.synchronize()
+
+    out["profile"] = profile_steps(one_step, what, "training step", n=3, grad=True)
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"[{what}] device busy {out['profile']['busy_ms']:.4f} ms a step, idle share "
+          f"{out['profile']['idle_share']:.3f}, {out['compute_dtype']} operands, peak memory "
+          f"{out['peak_memory_gb']:.2f} GiB, on {CARD[0]}")
+    return out
+
+
 def lstm_summary(rows, name, lstm, replaces, path):
     """An LSTM cell kernel's row at the leg's shape with the leg's scales
     (one per gate block) on the main path's ``path`` (the forward: two
@@ -2685,18 +3154,20 @@ def kernel_summary(rows, name, m, launches, source, replaces, library_note=None)
     return entry
 
 
-def llama_gemm_sums(rows, m: int, kernel: str = "int8_matmul") -> dict:
+def llama_gemm_sums(rows, m: int, kernel: str = "int8_matmul",
+                    kn_count: dict = LLAMA_KN_COUNT) -> dict:
     """A GEMM kernel's times over one Llama forward (prefill, M = 4096) or one
-    decode step (M = 16): its 43 launches at their shapes."""
+    decode step (M = 16): its 43 launches at their shapes; or over the
+    launches ``kn_count`` gives (QuartzNet's 94 a forward at M = 512)."""
     per_kn = {(r["k"], r["n"]): r for r in rows if r["kernel"] == kernel and r["m"] == m}
-    sums = {key: sum(per_kn[kn][key] * c for kn, c in LLAMA_KN_COUNT.items())
+    sums = {key: sum(per_kn[kn][key] * c for kn, c in kn_count.items())
             for key in ("ms", "plain_ms", "bound_ms", "call_ms")}
-    by = {b: sum(per_kn[kn]["bound_ms"] * c for kn, c in LLAMA_KN_COUNT.items()
+    by = {b: sum(per_kn[kn]["bound_ms"] * c for kn, c in kn_count.items()
                  if per_kn[kn]["bound_by"] == b) for b in ("bytes", "operations")}
     sums["bound_by"] = max(by, key=by.get)
-    libs = [per_kn[kn]["library_ms"] for kn in LLAMA_KN_COUNT]
+    libs = [per_kn[kn]["library_ms"] for kn in kn_count]
     sums["library_ms"] = None if None in libs else sum(
-        per_kn[kn]["library_ms"] * c for kn, c in LLAMA_KN_COUNT.items())
+        per_kn[kn]["library_ms"] * c for kn, c in kn_count.items())
     return sums
 
 
@@ -2762,12 +3233,16 @@ def main() -> int:
     cnv_qat = {f"int{b}pc_{d}": phase_cnv_qat(dev, b, bf16=d == "bf16")
                for b in CNV_QAT_BITS for d in ("bf16", "float32")}
     trainer = phase_bnn_pynq(dev)
+    exact_route = check_exact_route(dev)
+    quartznet = phase_quartznet_serving(dev)
+    mobilenet = {d: phase_mobilenet_qat(dev, bf16=d == "bf16") for d in ("bf16", "float32")}
 
     int8_by_path = {"serve": serve_int8, "lfc8": lfc_launches["int8_matmul"],
                     "llama_prefill": prefill["launches"]["int8_matmul"],
                     **{f"llama_decode_{k}": v["launches"]["int8_matmul"]
                        for k, v in decode.items()},
-                    **{k: v["launches"]["int8_matmul"] for k, v in serve_decode.items()}}
+                    **{k: v["launches"]["int8_matmul"] for k, v in serve_decode.items()},
+                    "quartznet_serving": quartznet["launches_per_forward"]["int8_matmul"]}
     int4_by_path = {"llama_w4a8_prefill": w4a8_prefill["launches"]["int4_matmul"],
                     "llama_w4a8_decode": w4a8_decode["launches"]["int4_matmul"]}
     int4_decode = llama_gemm_sums(rows, DECODE_BATCH, "int4_matmul")
@@ -2794,7 +3269,9 @@ def main() -> int:
                                 "torch._int_mm needs N % 8 == 0; LFC's head has N = 10")
     int8_entry.update(launches_by_path=int8_by_path, split_k_crossover=crossover,
                       llama_prefill_forward=llama_gemm_sums(rows, PREFILL_BATCH * PREFILL_T),
-                      llama_decode_step=llama_gemm_sums(rows, DECODE_BATCH))
+                      llama_decode_step=llama_gemm_sums(rows, DECODE_BATCH),
+                      quartznet_forward=llama_gemm_sums(rows, QN_M,
+                                                        kn_count=QUARTZNET_KN_COUNT))
     for r in attn_rows:
         r["flips_total"] = sum(x["flips"] for x in attn_rows if x["kernel"] == r["kernel"])
         r["max_err"] = max(x["err"] for x in attn_rows if x["kernel"] == r["kernel"])
@@ -2835,7 +3312,8 @@ def main() -> int:
                      "brevitas_tpu/kernels/lstm_cell.py:224", "direct"),
         *(fake_quant_summary(fq_rows, name, sum(
             PATH_COUNTS[path][name] for path in
-            [f"lfc_qat_{d}" for d in lfc_qat] + [f"cnv_qat_{k}" for k in cnv_qat]))
+            [f"lfc_qat_{d}" for d in lfc_qat] + [f"cnv_qat_{k}" for k in cnv_qat]
+            + [f"mobilenet_qat_{d}" for d in mobilenet] + ["quartznet_serving"]))
           for name in ("fake_quant", "fake_quant_backward")),
     ], "serve": serve_out,
         "llama_prefill": {k: v for k, v in prefill.items() if k != "profile"},
@@ -2853,6 +3331,10 @@ def main() -> int:
                     for k, run in cnv_qat.items()},
         "convs": convs,
         "bnn_pynq": trainer,
+        "exact_route": exact_route,
+        "quartznet_serving": {k: v for k, v in quartznet.items() if k != "profile"},
+        "mobilenet_qat": {d: {k: v for k, v in run.items() if k != "profile"}
+                          for d, run in mobilenet.items()},
         "seconds": time.perf_counter() - t0}
     for entry in report["kernels"]:
         entry["launches_by_path"] = {path: counts[entry["name"]]

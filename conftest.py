@@ -31,12 +31,14 @@ FILE_SECONDS = {
     "tests/test_export.py": 232, "tests/test_finn_export.py": 221,
     "tests/test_checkpoint_examples.py": 215, "tests/test_autograph.py": 213,
     "tests/test_rnn.py": 206, "tests/test_end_to_end.py": 161,
-    "tests/test_int4_kv.py": 144, "tests/test_export_matrix.py": 133,
+    "tests/test_int4_kv.py": 144, "tests/test_torch_port_mobilenet.py": 144,
+    "tests/test_export_matrix.py": 133,
     "tests/test_export_derive.py": 122, "tests/test_vit.py": 111,
     "tests/test_properties.py": 105, "tests/test_compute_dtype.py": 104,
     "tests/test_audio.py": 85, "tests/test_parallel.py": 72,
     "tests/test_dynamic_quant.py": 68, "tests/test_pipeline.py": 65,
     "tests/test_torch_port_attention.py": 59, "tests/test_torch_port_cnv.py": 55,
+    "tests/test_torch_port_quartznet.py": 52,
     "tests/test_moe.py": 55,
     "tests/test_gpfq.py": 55, "tests/test_torch_port_w4a8.py": 54,
     "tests/test_mixed_precision.py": 54, "tests/test_quantizers.py": 52,

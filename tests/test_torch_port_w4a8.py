@@ -187,7 +187,9 @@ def test_quant_linear_and_embedding_match_jax(rng, preset):
 
 
 def test_per_channel_activation_scaling_still_refused():
-    with pytest.raises(NotImplementedError):
+    """Per-channel activation scaling is ported, and refused without the
+    channel count, as the JAX package refuses it."""
+    with pytest.raises(ValueError, match="num_channels"):
         PortActQuantizer(port_presets.Int8ActPerTensorFloat.let(scaling_per_output_channel=True))
 
 
