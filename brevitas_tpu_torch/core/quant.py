@@ -5,11 +5,18 @@ path does: a multiply by the reciprocal can move a value across a rounding
 tie.
 """
 
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
-from brevitas_tpu_torch.ops import max_int, min_int, round_ste, tensor_clamp
+from brevitas_tpu_torch.ops import (
+    binary_sign_ste,
+    max_int,
+    min_int,
+    round_ste,
+    tensor_clamp,
+    ternary_sign_ste,
+)
 
 FloatToInt = Callable[[torch.Tensor], torch.Tensor]
 
@@ -52,9 +59,33 @@ def rescaling_scale(threshold: torch.Tensor, bit_width, *, signed: bool,
     from the division by an ulp about half the time (for 7 or 127), so the
     card and a CPU copy would compute different scales. A fill, unlike a
     tensor made from the Python number, copies nothing from the host and so
-    does not wait for the card."""
+    does not wait for the card. A learned bit width gives a tensor divisor,
+    through which its gradient flows."""
     divisor = int_scaling(bit_width, signed=signed, narrow_range=narrow_range)
+    if torch.is_tensor(divisor):
+        return threshold / divisor
     return threshold / torch.full_like(threshold, divisor)
+
+
+def binary_quant(x: torch.Tensor, scale) -> Tuple[torch.Tensor, float]:
+    """``binary_sign(x) * scale`` (+scale at 0), the gradient straight
+    through everywhere. Returns (value, bit width 1)."""
+    return binary_sign_ste(x) * scale, 1.0
+
+
+def clamped_binary_quant(x: torch.Tensor, scale) -> Tuple[torch.Tensor, float]:
+    """Binarization of ``x`` clamped to [-scale, scale] first (the
+    activation side): the ``where`` clamp zeroes the gradient outside that
+    range and passes it at exactly +-scale, as in JAX."""
+    y = tensor_clamp(x, -scale, scale)
+    return binary_sign_ste(y) * scale, 1.0
+
+
+def ternary_quant(x: torch.Tensor, scale, threshold: float) -> Tuple[torch.Tensor, float]:
+    """0 where ``|x| <= threshold * scale`` (a strict ``>`` keeps the rest),
+    else ``sign(x) * scale``. Returns (value, bit width 2)."""
+    mask = torch.abs(x) > (threshold * scale)
+    return mask.to(x.dtype) * ternary_sign_ste(x) * scale, 2.0
 
 
 def trunc_int_quant(x: torch.Tensor, scale, zero_point, input_bit_width, output_bit_width, *,

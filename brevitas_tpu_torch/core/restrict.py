@@ -5,11 +5,13 @@ init value into the stored domain once, ``forward`` maps the stored value to
 its effective value at every call. FP stores the value itself; LOG_FP and
 POWER_OF_TWO store its log2 and give ``2 ** value`` and ``2 ** f2i(value)``,
 so a learned power-of-two scale trains in log2 space through the
-float-to-int map's straight-through gradient.
+float-to-int map's straight-through gradient. INT stores the value itself
+and gives ``f2i(value)``.
 
-Ported: FP, LOG_FP and POWER_OF_TWO, and the ROUND/CEIL/FLOOR float-to-int
-maps.
-The INT restriction and the other maps raise until a later slice ports them.
+Every restriction is ported, with the ROUND, CEIL, FLOOR, ROUND_TO_ZERO and
+DPU_ROUND float-to-int maps. STOCHASTIC_ROUND draws noise, so it is no
+static map: a quantizer resolves it itself (``quant.quantizers``), and
+``float_to_int_fn`` refuses it.
 """
 
 import enum
@@ -17,7 +19,7 @@ import math
 
 import torch
 
-from brevitas_tpu_torch.ops import ceil_ste, floor_ste, round_ste
+from brevitas_tpu_torch.ops import ceil_ste, dpu_round_ste, floor_ste, round_ste, round_to_zero_ste
 
 
 class RestrictType(str, enum.Enum):
@@ -36,29 +38,28 @@ class FloatToIntImpl(str, enum.Enum):
     STOCHASTIC_ROUND = "stochastic_round"
 
 
+_STATIC_MAPS = {
+    FloatToIntImpl.ROUND: round_ste,
+    FloatToIntImpl.FLOOR: floor_ste,
+    FloatToIntImpl.CEIL: ceil_ste,
+    FloatToIntImpl.ROUND_TO_ZERO: round_to_zero_ste,
+    FloatToIntImpl.DPU_ROUND: dpu_round_ste,
+}
+
+
 def float_to_int_fn(impl: FloatToIntImpl):
+    """The straight-through map of a static float-to-int choice."""
     impl = FloatToIntImpl(impl)
-    if impl == FloatToIntImpl.ROUND:
-        return round_ste
-    if impl == FloatToIntImpl.CEIL:
-        return ceil_ste
-    if impl == FloatToIntImpl.FLOOR:
-        return floor_ste
-    raise NotImplementedError(f"float_to_int {impl.value} is not ported yet")
-
-
-def _check_ported(restrict: RestrictType) -> RestrictType:
-    restrict = RestrictType(restrict)
-    if restrict == RestrictType.INT:
-        raise NotImplementedError("the INT restriction is not ported yet")
-    return restrict
+    if impl not in _STATIC_MAPS:
+        raise ValueError(f"float_to_int {impl.value} draws noise: the quantizer resolves it")
+    return _STATIC_MAPS[impl]
 
 
 def preprocess(restrict: RestrictType, value):
     """Move a raw (linear-domain) init value into the stored domain: log2
     for LOG_FP and POWER_OF_TWO (``math.log2`` of a number, ``torch.log2``
-    of a tensor, which is differentiable)."""
-    if _check_ported(restrict) == RestrictType.FP:
+    of a tensor, which is differentiable); FP and INT store it as it is."""
+    if RestrictType(restrict) in (RestrictType.FP, RestrictType.INT):
         return value
     if isinstance(value, (float, int)):
         return math.log2(value)
@@ -68,9 +69,11 @@ def preprocess(restrict: RestrictType, value):
 def forward(restrict: RestrictType, value: torch.Tensor,
             float_to_int: FloatToIntImpl = FloatToIntImpl.ROUND) -> torch.Tensor:
     """Map a stored value to its effective (linear-domain) value."""
-    restrict = _check_ported(restrict)
+    restrict = RestrictType(restrict)
     if restrict == RestrictType.FP:
         return value
+    if restrict == RestrictType.INT:
+        return float_to_int_fn(float_to_int)(value)
     if restrict == RestrictType.LOG_FP:
         # formed in float64 and rounded once: torch's float32 pow gives other
         # last bits on the card than on the CPU

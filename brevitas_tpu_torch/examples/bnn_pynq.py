@@ -4,21 +4,30 @@ Trains the FC family (TFC, SFC, LFC) and CNV with the square hinge loss,
 Adam and weight clipping to [-1, 1] after every step, on MNIST read from idx
 files or CIFAR-10 read from its python-version batches under ``--data-dir``,
 or on synthetic data made from a numpy seed. On the card every per-tensor
-quantizer of the network runs the ``fake_quant`` CUDA kernel, forward and
-backward, and CNV's convs run as float32 matmuls (``nn.conv``).
+INT quantizer of the network runs the ``fake_quant`` CUDA kernel, forward
+and backward; 1-bit (BINARY) quantizers run their plain sign ops, as in
+the JAX package, which has no kernel for them; CNV's convs run as float32
+matmuls (``nn.conv``).
 
-Run:  python -m brevitas_tpu_torch.examples.bnn_pynq --network CNV_4W4A \\
-        --dataset synthetic --epochs 1
+Run:  python -m brevitas_tpu_torch.examples.bnn_pynq --dataset synthetic --epochs 1
+      python -m brevitas_tpu_torch.examples.bnn_pynq --cfg cnv_2w2a --dataset synthetic
 
-Ported: the 3- to 8-bit networks (``LFC_4W4A``, ``CNV_4W4A``, ``CNV_8W8A``,
-...), MNIST, CIFAR-10 and synthetic data, the per-step loop and evaluation.
-Left out, each with an error that says so: the 1- and 2-bit networks
-(binary quantizers), ``--dataset digits`` (needs ``sklearn``), ``--cfg``
-(every shipped ``.ini`` is 1-2 bit), ``--scan``, ``--native-loader``,
-``--resume`` and checkpoint saving.
+Ported: every network of the reference matrix at any width (``LFC_1W1A``,
+the default, ``TFC_1W2A``, ``CNV_2W2A``, ``LFC_4W4A``, ...), the 11 shipped
+``.ini`` configs (``--cfg``, a bare name resolved against this package's own
+``cfg/`` copies, or a path), MNIST, CIFAR-10 and synthetic data, the
+per-step loop and evaluation, the best-accuracy checkpoint under
+``--ckpt-dir`` (``best.pt``: ``torch.save`` of the model's and Adam's
+``state_dict``s, the dropout generator's state and the next epoch to run)
+and ``--resume`` from it, which repeats a straight run bit for bit. Left
+out, each with an error that says so: ``--dataset digits`` (needs
+``sklearn``), ``--scan`` and ``--native-loader``.
 """
 
 import argparse
+import ast
+import configparser
+import functools
 import gzip
 import json
 import os
@@ -31,23 +40,49 @@ import numpy as np
 import torch
 
 from brevitas_tpu_torch.models import cnv, lfc, sfc, tfc
+from brevitas_tpu_torch.models.cnv import CNV
+from brevitas_tpu_torch.models.fc import FC
 from brevitas_tpu_torch.utils import resolve_device
 
 NETWORKS = {"TFC": (tfc, "fc"), "SFC": (sfc, "fc"), "LFC": (lfc, "fc"), "CNV": (cnv, "cnv")}
-# bit widths below this need the binary quantizers, not ported yet
-MIN_BITS = 3
+CFG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cfg")
+CHECKPOINT = "best.pt"
 
 
 def parse_network(name: str):
-    """e.g. LFC_4W4A -> (lfc builder, "fc", weight_bits=4, act_bits=4)."""
+    """e.g. LFC_1W2A -> (lfc builder, "fc", weight_bits=1, act_bits=2)."""
     arch, bits = name.upper().split("_")
     w_bits = int(bits[0])
     a_bits = int(bits[2])
-    if min(w_bits, a_bits) < MIN_BITS:
-        raise NotImplementedError(f"{name}: 1- and 2-bit networks are not ported yet "
-                                  "(slice 8: binary quantizers)")
     builder, kind = NETWORKS[arch]
     return builder, kind, w_bits, a_bits
+
+
+def load_cfg(name_or_path: str):
+    """Resolve a reference-style ``.ini`` config (bnn_pynq/cfg/*.ini): a
+    path, or a bare name such as ``lfc_1w1a`` looked up in this package's
+    ``cfg/``. Returns (model builder, its keyword arguments, kind, dataset
+    named in the file)."""
+    path = name_or_path
+    if not os.path.exists(path):
+        path = os.path.join(CFG_DIR, name_or_path.lower() + ".ini")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no cfg {name_or_path!r}")
+    cfg = configparser.ConfigParser()
+    cfg.read(path)
+    arch = cfg["MODEL"]["ARCH"].strip().upper()
+    kw = dict(weight_bit_width=cfg["QUANT"].getint("WEIGHT_BIT_WIDTH"),
+              act_bit_width=cfg["QUANT"].getint("ACT_BIT_WIDTH"),
+              in_bit_width=cfg["QUANT"].getint("IN_BIT_WIDTH"),
+              num_classes=cfg["MODEL"].getint("NUM_CLASSES", 10))
+    if arch == "FC":
+        feats = tuple(ast.literal_eval(cfg["MODEL"]["OUT_FEATURES"]))
+        builder = functools.partial(FC, out_features=feats)
+        kind = "fc"
+    else:
+        builder = functools.partial(CNV, in_channels=cfg["MODEL"].getint("IN_CHANNELS", 3))
+        kind = "cnv"
+    return builder, kw, kind, cfg["MODEL"].get("DATASET", "MNIST").lower()
 
 
 def sqr_hinge_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -164,19 +199,41 @@ def evaluate(model, x: np.ndarray, y: np.ndarray, batch_size: int = 256) -> floa
     return int(correct) / max(len(x), 1)
 
 
+def save_checkpoint(path: str, model, optimizer, epoch: int, best_acc: float) -> None:
+    """The model's and Adam's ``state_dict``s, the dropout generator's state
+    (FC; None before its first draw and for CNV) and the next epoch to run,
+    so that ``--resume`` does not repeat this one."""
+    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                "dropout_generator": getattr(model, "dropout_generator_state", lambda: None)(),
+                "epoch": epoch + 1, "best_val_acc": best_acc}, path)
+
+
+def load_checkpoint(path: str, model, optimizer=None) -> Tuple[int, float]:
+    """Restore what ``save_checkpoint`` stored, in place; returns (the epoch
+    to run next, the best accuracy so far)."""
+    device = next(model.parameters()).device
+    ckpt = torch.load(path, map_location=device, weights_only=True)
+    model.load_state_dict(ckpt["model"])
+    if optimizer is not None:
+        optimizer.load_state_dict(ckpt["optimizer"])
+    if ckpt["dropout_generator"] is not None:
+        model.load_dropout_generator_state(ckpt["dropout_generator"])
+    return ckpt["epoch"], ckpt["best_val_acc"]
+
+
 LEFT_OUT = {  # option -> why it raises
-    "cfg": "every shipped .ini config is 1-2 bit (slice 8)",
     "scan": "the port runs each step eagerly; a CUDA graph of the step is later work",
     "native_loader": "the C++ prefetch loader is not ported (slice 11)",
-    "resume": "checkpoints are not ported (slice 11)",
 }
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser("brevitas_tpu_torch bnn_pynq trainer")
-    p.add_argument("--network", default="LFC_4W4A",
-                   help="{TFC,SFC,LFC,CNV}_{3..8}W{3..8}A, e.g. LFC_4W4A")
-    p.add_argument("--cfg", default=None, help="not ported: " + LEFT_OUT["cfg"])
+    p.add_argument("--network", default="LFC_1W1A",
+                   help="{TFC,SFC,LFC,CNV}_{W}W{A}A, e.g. LFC_1W1A, CNV_2W2A, LFC_4W4A")
+    p.add_argument("--cfg", default=None,
+                   help=".ini config (reference bnn_pynq/cfg format): a name like lfc_1w1a "
+                        "or a path; overrides --network")
     p.add_argument("--dataset", default="synthetic",
                    choices=["mnist", "cifar10", "digits", "synthetic"])
     p.add_argument("--data-dir", default=os.environ.get("DATA_DIR", "./data"))
@@ -185,14 +242,19 @@ def main(argv=None):
     p.add_argument("--lr", type=float, default=0.02)
     p.add_argument("--loss", default="sqr_hinge", choices=sorted(LOSSES))
     p.add_argument("--seed", type=int, default=123456)
-    p.add_argument("--resume", default=None, help="not ported: " + LEFT_OUT["resume"])
+    p.add_argument("--resume", default=None, help="a checkpoint written by this trainer")
+    p.add_argument("--ckpt-dir", default="./checkpoints",
+                   help=f"where the best-accuracy checkpoint ({CHECKPOINT}) is written")
     p.add_argument("--log-every", type=int, default=20)
     p.add_argument("--scan", action="store_true", help="not ported: " + LEFT_OUT["scan"])
     p.add_argument("--native-loader", action="store_true",
                    help="not ported: " + LEFT_OUT["native_loader"])
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
 
+
+def train(args: argparse.Namespace):
+    """The trainer's run: returns (model, optimizer, best accuracy)."""
     for opt, why in LEFT_OUT.items():
         if getattr(args, opt):
             raise NotImplementedError(f"--{opt.replace('_', '-')}: {why}")
@@ -200,12 +262,15 @@ def main(argv=None):
         raise NotImplementedError("--dataset digits needs sklearn; use mnist (idx files under "
                                   "--data-dir) or synthetic")
     device = resolve_device(args.device)
-    builder, kind, w_bits, a_bits = parse_network(args.network)
-    model_kw = dict(weight_bit_width=w_bits, act_bit_width=a_bits)
-    if kind == "fc":
-        # reference cfgs set IN_BIT_WIDTH equal to the ACT bit width; CNV
-        # keeps its 8-bit input
-        model_kw["in_bit_width"] = a_bits
+    if args.cfg:
+        builder, model_kw, kind, _ = load_cfg(args.cfg)
+    else:
+        builder, kind, w_bits, a_bits = parse_network(args.network)
+        model_kw = dict(weight_bit_width=w_bits, act_bit_width=a_bits)
+        if kind == "fc":
+            # reference cfgs set IN_BIT_WIDTH equal to the ACT bit width
+            # (tfc_1w2a.ini: WEIGHT 1, ACT 2, IN 2); CNV keeps its 8-bit input
+            model_kw["in_bit_width"] = a_bits
     model = builder(**model_kw, generator=torch.Generator().manual_seed(args.seed),
                     device=device)
 
@@ -220,9 +285,11 @@ def main(argv=None):
         x_test, y_test = load_synthetic("test", kind, n=512)
 
     optimizer = torch.optim.Adam(model.parameters(), lr=args.lr)
+    start_epoch, best_acc = 0, 0.0
+    if args.resume:
+        start_epoch, best_acc = load_checkpoint(args.resume, model, optimizer)
     model.train()
-    best_acc = 0.0
-    for epoch in range(args.epochs):
+    for epoch in range(start_epoch, args.epochs):
         t0 = time.time()
         losses = []
         for bi, (xb, yb) in enumerate(batches(x_train, y_train, args.batch_size,
@@ -238,9 +305,17 @@ def main(argv=None):
         imgs_per_sec = len(losses) * args.batch_size / dt
         print(f"epoch {epoch}: mean loss {np.mean(losses):.4f} "
               f"val acc {acc:.4f} ({imgs_per_sec:.0f} img/s)")
-        best_acc = max(best_acc, acc)
+        if acc > best_acc:
+            best_acc = acc
+            os.makedirs(args.ckpt_dir, exist_ok=True)
+            save_checkpoint(os.path.join(args.ckpt_dir, CHECKPOINT), model, optimizer,
+                            epoch, best_acc)
     print(json.dumps({"best_val_acc": best_acc}))
-    return best_acc
+    return model, optimizer, best_acc
+
+
+def main(argv=None):
+    return train(parse_args(argv))[2]
 
 
 if __name__ == "__main__":

@@ -11,8 +11,11 @@ package's channels-last HWIO (WIO) to torch's OIHW (OIW), and a per-channel
 tensor stored (1, ..., 1, O) goes to the port's (O, 1, ..., 1). A module
 that the JAX model shares between several places (QuantLSTM's hidden-state
 and cell-state quantizers) appears once in its state, at its first path,
-and fills the one module the port shares the same way. The JAX model's random-number state (``rngs.*``)
-has no counterpart and is skipped. Lists of modules (``nnx.List``: CNV's
+and fills the one module the port shares the same way. The JAX model's
+random-number state (``rngs``, at the root or inside a module, as a
+stochastic-rounding quantizer holds it) has no counterpart and is skipped.
+Zero points carry as their ``value``, ``buffer`` and ``counter``, a learned
+bit width as its ``offset``. Lists of modules (``nnx.List``: CNV's
 ``conv_features``, QuartzNet's ``encoder``/``convs``/``bns``/``acts``,
 MobileNet's ``features``) carry by index, a per-channel activation
 threshold (C,) and a BatchNorm's running statistics as they are.
@@ -38,7 +41,7 @@ def load_jax_state(model: nn.Module, arrays: Dict[str, np.ndarray]) -> nn.Module
     """Copy every array into the tensor at its path, in place; raises on a
     path or shape that has no counterpart."""
     for path, array in arrays.items():
-        if path.startswith("rngs."):
+        if path.startswith("rngs.") or ".rngs." in path:
             continue
         owner_path, _, name = path.rpartition(".")
         owner = model.get_submodule(owner_path)

@@ -72,6 +72,17 @@ class FC(nn.Module):
                 if isinstance(lyr, QuantLinear):
                     lyr.weight.clamp_(min_val, max_val)
 
+    def dropout_generator_state(self) -> Optional[torch.Tensor]:
+        """The dropout generator's state (None before its first draw): a
+        checkpoint keeps it so that a resumed run draws the masks a straight
+        run draws."""
+        return None if self._dropout_gen is None else self._dropout_gen.get_state()
+
+    def load_dropout_generator_state(self, state: torch.Tensor) -> None:
+        device = next(self.parameters()).device
+        self._dropout_gen = torch.Generator(device)
+        self._dropout_gen.set_state(state.cpu())
+
     def _dropout(self, x):
         if not (self.training and self.dropout_rate > 0):
             return x
@@ -83,7 +94,8 @@ class FC(nn.Module):
         out = torch.where(mask, v / keep, 0.0)
         if isinstance(x, QuantTensor):
             # zeros are code 0 and the 1/keep rescale moves into the scale,
-            # so the integer codes are unchanged
+            # so the integer codes are unchanged (a binary value +-s becomes
+            # +-s/keep on the scale s/keep: still code +-1)
             return QuantTensor(out, None if x.scale is None else x.scale / keep,
                                x.zero_point, x.bit_width, signed=x.signed,
                                training=x.training)

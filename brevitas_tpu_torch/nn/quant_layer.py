@@ -10,7 +10,10 @@ and weight grids of at most 9 bits with integral zero points, the layer
 feeds the integer codes ``value / scale`` (exact small integers, lossless in
 bf16) to its product and rescales the float32 result by the output scale:
 the code-domain branch. A per-channel input scale arrives as (C, 1, ...)
-against the input's channel axis and reaches depthwise convs only.
+against the input's channel axis and reaches depthwise convs only. BINARY
+and TERNARY weights never take the branch (it needs INT weights, as in
+JAX): under bf16 their +-scale values are cast to bf16 like any float
+operand.
 
 Left out: the cached inference weight, accumulator-aware (A2Q) weights and
 the PTQ hooks.
@@ -85,7 +88,8 @@ class QuantWBIOL(QuantLayerMixin, nn.Module):
 
     def max_acc_bit_width(self, input_bit_width: float, weight_bit_width: float) -> float:
         """Accumulator bit-width law: ceil(log2(max_in * max_w * fan_in)),
-        evaluated in float32 as the JAX package does."""
+        evaluated in float32 as the JAX package does. A 1-bit narrow weight
+        (binary) has max_w = 0, so the law gives -inf, as in JAX."""
         max_input = max_int(False, False, input_bit_width)
         max_weight = max_int(False, self.weight_quant.cfg.narrow_range, weight_bit_width)
         max_output = torch.tensor(max_input * max_weight * self.reduce_size,

@@ -17,6 +17,26 @@ def tensor_clamp(x: torch.Tensor, min_val: Number, max_val: Number) -> torch.Ten
     return torch.where(out < min_val, min_val, out)
 
 
+def binary_sign(x: torch.Tensor) -> torch.Tensor:
+    """Two-valued sign: +1 for x >= 0, -1 for x < 0 (``torch.sign(0)`` is
+    0, so it is not used)."""
+    return torch.where(x >= 0, torch.ones_like(x), -torch.ones_like(x))
+
+
+def round_to_zero(x: torch.Tensor) -> torch.Tensor:
+    """Round towards zero. ``torch.trunc`` gives what the JAX package's
+    ``sign(x) * floor(|x|)`` gives, signed zeros included (-0.5 and -0.0
+    give -0.0); torch's own ``sign(-0.0)`` is +0.0, so that form would not."""
+    return torch.trunc(x)
+
+
+def dpu_round(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even, except that a negative .5 tie rounds up (ceil):
+    ``dpu_round([-1.5, -0.5, 0.5, 1.5]) == [-1, -0, 0, 2]``."""
+    frac = x - torch.floor(x)
+    return torch.where((x < 0.0) & (frac == 0.5), torch.ceil(x), torch.round(x))
+
+
 def max_int(signed: bool, narrow_range: bool, bit_width: Number) -> Number:
     """Largest representable integer: max_int(True, *, 8) == 127,
     max_int(False, False, 8) == 255, max_int(False, True, 8) == 254."""

@@ -2,7 +2,9 @@
 ``brevitas_tpu/ops/ste.py``): the forward is a rounding or clamping
 primitive, the backward passes the gradient straight through.
 
-``torch.round`` rounds half to even, like ``jnp.round``.
+``torch.round`` rounds half to even, like ``jnp.round``. Stochastic rounding
+takes its noise as an input, drawn by the caller (the quantizer holds the
+generator), as JAX's ``_stochastic_round(x, noise)`` does.
 """
 
 import torch
@@ -36,6 +38,32 @@ class _FloorSte(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g
+
+
+class _UnarySte(torch.autograd.Function):
+    """``fn(x)`` forward, the gradient straight through."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        return fn(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _StochasticRound(torch.autograd.Function):
+    """``floor(x + noise)``; the gradient passes straight through to ``x``
+    and none reaches the noise, as JAX's ``_stochastic_round`` takes its
+    noise as an input with a zero cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, noise):
+        return torch.floor(x + noise)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 class _TensorClampSte(torch.autograd.Function):
@@ -85,6 +113,40 @@ def ceil_ste(x: torch.Tensor) -> torch.Tensor:
 def floor_ste(x: torch.Tensor) -> torch.Tensor:
     """Floor; straight-through gradient."""
     return _FloorSte.apply(x)
+
+
+def round_to_zero_ste(x: torch.Tensor) -> torch.Tensor:
+    """Truncation towards zero; straight-through gradient."""
+    from brevitas_tpu_torch.ops.numeric import round_to_zero
+
+    return _UnarySte.apply(x, round_to_zero)
+
+
+def dpu_round_ste(x: torch.Tensor) -> torch.Tensor:
+    """DPU rounding (negative .5 ties up); straight-through gradient."""
+    from brevitas_tpu_torch.ops.numeric import dpu_round
+
+    return _UnarySte.apply(x, dpu_round)
+
+
+def binary_sign_ste(x: torch.Tensor) -> torch.Tensor:
+    """Two-valued sign (+1 at 0); straight-through gradient."""
+    from brevitas_tpu_torch.ops.numeric import binary_sign
+
+    return _UnarySte.apply(x, binary_sign)
+
+
+def ternary_sign_ste(x: torch.Tensor) -> torch.Tensor:
+    """Three-valued sign (``torch.sign``, 0 at 0); straight-through
+    gradient."""
+    return _UnarySte.apply(x, torch.sign)
+
+
+def stochastic_round_ste(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """Stochastic rounding ``floor(x + noise)`` for uniform [0, 1) ``noise``
+    of ``x``'s shape, drawn by the caller: it rounds up with probability
+    equal to the fractional part. Straight-through gradient to ``x``."""
+    return _StochasticRound.apply(x, noise)
 
 
 def tensor_clamp_ste(x: torch.Tensor, min_val, max_val) -> torch.Tensor:

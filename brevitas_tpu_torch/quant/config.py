@@ -54,6 +54,7 @@ class QuantConfig:
     signed: bool = True
     narrow_range: bool = False
     bit_width_impl: BitWidthImplType = BitWidthImplType.CONST
+    min_bit_width: float = 2.0  # the lower bound of a learned bit width
     float_to_int: FloatToIntImpl = FloatToIntImpl.ROUND
     clamp_ste: bool = False  # True: straight-through grads at the clip boundary
     scaling_impl: ScalingImplType = ScalingImplType.STATS
@@ -66,7 +67,11 @@ class QuantConfig:
     scaling_stats_momentum: Optional[float] = DEFAULT_MOMENTUM
     collect_stats_steps: int = 300
     high_percentile_q: Optional[float] = None
+    low_percentile_q: Optional[float] = None
     zero_point_impl: ZeroPointImplType = ZeroPointImplType.ZERO
+    quantize_zero_point: bool = False
+    zero_point_stats_op: StatsOp = StatsOp.MIN
+    ternary_threshold: float = 0.5
     quant_delay_steps: int = 0
     # bias quantizers: the scale (input scale x weight scale) and the bit
     # width (the accumulator's) come from the layer at each call

@@ -1,21 +1,35 @@
 """Predefined quantizer configs (port of ``brevitas_tpu/quant/presets.py``).
 
-Ported: the ones the port's models use. Compose variants with
-``.let(...)``.
+Ported: the ones the port's models use, the binary and ternary constants,
+the shifted (asymmetric, zero-point) unsigned ones and the learned
+bit-width variants. Compose variants with ``.let(...)``.
 """
 
 from brevitas_tpu_torch.core.restrict import FloatToIntImpl
 from brevitas_tpu_torch.core.stats import StatsOp
-from brevitas_tpu_torch.quant.config import QuantConfig, QuantType, ScalingImplType
+from brevitas_tpu_torch.quant.config import (
+    BitWidthImplType,
+    QuantConfig,
+    QuantType,
+    ScalingImplType,
+    ZeroPointImplType,
+)
 
 _INT = QuantConfig(quant_type=QuantType.INT, signed=True, narrow_range=False)
 _UINT = _INT.let(signed=False)
 
 _MAX_STATS = dict(scaling_impl=ScalingImplType.STATS,
                   scaling_stats_op=StatsOp.MAX, scaling_min_val=1e-10)
+_MIN_MAX_STATS = dict(scaling_impl=ScalingImplType.STATS,
+                      scaling_stats_op=StatsOp.MIN_MAX, scaling_min_val=1e-10)
 _PARAM_FROM_PERCENTILE = dict(
     scaling_impl=ScalingImplType.PARAMETER_FROM_STATS,
     scaling_stats_op=StatsOp.PERCENTILE, high_percentile_q=99.999,
+    collect_stats_steps=300, scaling_min_val=1e-10)
+_PARAM_FROM_PERCENTILE_INTERVAL = dict(
+    scaling_impl=ScalingImplType.PARAMETER_FROM_STATS,
+    scaling_stats_op=StatsOp.PERCENTILE_INTERVAL,
+    high_percentile_q=99.999, low_percentile_q=0.001,
     collect_stats_steps=300, scaling_min_val=1e-10)
 
 Int8WeightPerTensorFloat = _INT.let(narrow_range=True, bit_width=8, **_MAX_STATS)
@@ -23,8 +37,24 @@ Int8WeightPerChannelFloat = Int8WeightPerTensorFloat.let(scaling_per_output_chan
 Int4WeightPerTensorFloat = Int8WeightPerTensorFloat.let(bit_width=4)
 Int4WeightPerChannelFloat = Int8WeightPerChannelFloat.let(bit_width=4)
 
+# asymmetric unsigned weights: the range from min to max, a zero point from
+# the negative minimum, put on the grid
+ShiftedUint8WeightPerTensorFloat = _UINT.let(
+    bit_width=8, **_MIN_MAX_STATS,
+    zero_point_impl=ZeroPointImplType.STATS,
+    zero_point_stats_op=StatsOp.MIN, quantize_zero_point=True)
+ShiftedUint8WeightPerChannelFloat = ShiftedUint8WeightPerTensorFloat.let(
+    scaling_per_output_channel=True)
+
 Int8ActPerTensorFloat = _INT.let(bit_width=8, **_PARAM_FROM_PERCENTILE)
 Uint8ActPerTensorFloat = _UINT.let(bit_width=8, **_PARAM_FROM_PERCENTILE)
+
+# asymmetric unsigned activations: a two-phase scale of the percentile
+# interval and a two-phase zero point of the low percentile
+ShiftedUint8ActPerTensorFloat = _UINT.let(
+    bit_width=8, **_PARAM_FROM_PERCENTILE_INTERVAL,
+    zero_point_impl=ZeroPointImplType.PARAMETER_FROM_STATS,
+    zero_point_stats_op=StatsOp.PERCENTILE_LOW, quantize_zero_point=True)
 
 # a bias on the accumulator's grid: its scale and bit width come from the
 # layer (input scale x weight scale, the accumulator bit width)
@@ -37,3 +67,20 @@ TruncTo8bit = QuantConfig(quant_type=QuantType.INT, bit_width=8,
 NoneWeightQuant = QuantConfig(quant_type=QuantType.NONE)
 NoneActQuant = QuantConfig(quant_type=QuantType.NONE)
 NoneBiasQuant = QuantConfig(quant_type=QuantType.NONE)
+
+# binary and ternary, each with a constant scale of 0.1
+SignedBinaryWeightPerTensorConst = QuantConfig(
+    quant_type=QuantType.BINARY, signed=True, narrow_range=True,
+    scaling_impl=ScalingImplType.CONST, scaling_const=0.1)
+SignedBinaryActPerTensorConst = SignedBinaryWeightPerTensorConst
+SignedTernaryWeightPerTensorConst = QuantConfig(
+    quant_type=QuantType.TERNARY, signed=True, narrow_range=True,
+    scaling_impl=ScalingImplType.CONST, scaling_const=0.1,
+    ternary_threshold=0.5)
+SignedTernaryActPerTensorConst = SignedTernaryWeightPerTensorConst
+
+# learned bit widths: 8 bits to start, learned down to min_bit_width (2)
+Int8WeightPerTensorFloatLearnedBitWidth = Int8WeightPerTensorFloat.let(
+    bit_width_impl=BitWidthImplType.PARAMETER)
+Int8ActPerTensorFloatLearnedBitWidth = Int8ActPerTensorFloat.let(
+    bit_width_impl=BitWidthImplType.PARAMETER)

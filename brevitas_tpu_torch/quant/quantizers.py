@@ -1,29 +1,37 @@
 """Quantizer modules — the stateful resolution of a QuantConfig (port of
 ``brevitas_tpu/quant/quantizers.py``).
 
-Ported: CONST bit-width; CONST scaling, learned PARAMETER scaling
-(``ParameterScaling``), STATS scaling of weights (``StatsScaling``) and
-two-phase PARAMETER_FROM_STATS scaling of activations
-(``ParameterFromRuntimeStatsScaling``) with its migration to a learned
-parameter (``convert_runtime_stats_to_parameter``); ZERO zero-point; quant
-delay; the INT/NONE weight quantizer, per-tensor or per output channel, and
-activation quantizer, per-tensor or per channel, signed or unsigned, with
-its static grid (``ActQuantizer.static_int_params``); the NONE bias
-quantizer and the INT one on the accumulator's grid (``IntBias``); the
-truncating quantizer of QuantAvgPool2d; and the ``disable_quant`` switch
-that calibration mode sets. Configs that need anything else raise
-``NotImplementedError``. On the card a per-tensor quantizer's fake-quant is
-the ``fake_quant`` CUDA kernel (``int_fake_quant``).
+Ported: CONST and learned PARAMETER bit widths (``BitWidth``); CONST
+scaling, learned PARAMETER scaling (``ParameterScaling``), STATS scaling of
+weights (``StatsScaling``) and two-phase PARAMETER_FROM_STATS scaling of
+activations (``ParameterFromRuntimeStatsScaling``) with its migration to a
+learned parameter (``convert_runtime_stats_to_parameter``); the ZERO,
+learned PARAMETER, STATS (of the weight) and two-phase PARAMETER_FROM_STATS
+zero points, quantized onto the grid or not (``ZeroPoint``); every
+float-to-int rounding, STOCHASTIC_ROUND from a generator the quantizer
+holds; quant delay; the INT, BINARY, TERNARY and NONE weight quantizers,
+INT per-tensor or per output channel, and activation quantizers, INT
+per-tensor or per channel, signed or unsigned, with the static grid of an
+INT one (``ActQuantizer.static_int_params``); the NONE bias quantizer and
+the INT one on the accumulator's grid (``IntBias``); the truncating
+quantizer of QuantAvgPool2d; and the ``disable_quant`` switch that
+calibration mode sets. Configs that need anything else raise
+``NotImplementedError``. On the card a per-tensor INT quantizer's
+fake-quant is the ``fake_quant`` CUDA kernel where ``int_fake_quant``'s
+rule sends it there; BINARY and TERNARY quantizers run the plain torch ops
+(the JAX package has no kernel for them).
 
 A per-channel activation quantizer holds one scale per channel, (C,) as
 in the JAX package, whose channels-last activations broadcast it as they
 are; the port's activations carry their channels on axis 1, so the scale
-is applied, and carried in the output, as (C, 1, ..., 1).
+and the zero point are applied, and carried in the output, as (C, 1, ...,
+1).
 
-The JAX package selects the two-phase scaler's branch with ``lax.cond`` on
-a carried counter so it stays inside one jitted step; PyTorch runs eagerly,
-so the port branches in Python on the same counter, with the same buffer,
-value and handoff semantics. Train/eval is ``nn.Module.training``.
+The JAX package selects a two-phase scaler's or zero point's branch with
+``lax.cond``/``where`` on a carried counter so it stays inside one jitted
+step; PyTorch runs eagerly, so the port branches in Python on the same
+counter, with the same buffer, value and handoff semantics. Train/eval is
+``nn.Module.training``.
 """
 
 import math
@@ -42,6 +50,7 @@ from brevitas_tpu_torch.ops import (
     min_int,
     round_ste,
     scalar_clamp_min_ste,
+    stochastic_round_ste,
     tensor_clamp,
     tensor_clamp_ste,
 )
@@ -80,16 +89,28 @@ def _expand(stat: torch.Tensor, bshape: Tuple[int, ...]) -> torch.Tensor:
 
 
 class BitWidth(nn.Module):
-    """CONST bit-width (a Python float)."""
+    """CONST bit width (a Python float), or a learned PARAMETER one:
+    ``round_ste(abs_binary_sign_grad(offset) + min_bit_width)``, a
+    one-element tensor whose gradient reaches ``offset``."""
 
     def __init__(self, cfg: QuantConfig):
         super().__init__()
-        if BitWidthImplType(cfg.bit_width_impl) != BitWidthImplType.CONST:
-            raise NotImplementedError("learned bit-widths are not ported yet")
+        self.impl = BitWidthImplType(cfg.bit_width_impl)
         self.const = float(cfg.bit_width)
+        if self.impl == BitWidthImplType.PARAMETER:
+            if cfg.bit_width < cfg.min_bit_width or cfg.min_bit_width < 2:
+                raise ValueError("learned bit-width requires bit_width >= min_bit_width >= 2")
+            self.base = float(cfg.min_bit_width)
+            self.offset = nn.Parameter(torch.tensor(float(cfg.bit_width - cfg.min_bit_width)))
 
-    def forward(self) -> float:
-        return self.const
+    @property
+    def learned(self) -> bool:
+        return self.impl == BitWidthImplType.PARAMETER
+
+    def forward(self):
+        if not self.learned:
+            return self.const
+        return round_ste(abs_binary_sign_grad(self.offset) + self.base)
 
 
 class _RestrictClamp:
@@ -226,8 +247,8 @@ def build_scaling(cfg: QuantConfig, bshape: Tuple[int, ...],
         if cfg.scaling_const is None:
             raise ValueError("CONST scaling requires scaling_const")
         return ConstScaling(cfg, cfg.scaling_const, bshape)
-    stats_fn = S.stats_fn(cfg.scaling_stats_op,
-                          high_percentile_q=cfg.high_percentile_q)
+    stats_fn = S.stats_fn(cfg.scaling_stats_op, high_percentile_q=cfg.high_percentile_q,
+                          low_percentile_q=cfg.low_percentile_q)
     if impl == ScalingImplType.PARAMETER:
         if cfg.scaling_const is not None:
             init = torch.full(bshape, float(cfg.scaling_const))
@@ -244,15 +265,78 @@ def build_scaling(cfg: QuantConfig, bshape: Tuple[int, ...],
 
 
 class ZeroPoint(nn.Module):
-    """ZERO zero-point."""
+    """The integer-domain zero point for (stats input, scale, bit width):
+    ZERO gives 0.0; the others form a linear-domain value ``zp`` and shift
+    it to ``zp / scale + min_int`` (``quantize_zero_point`` puts that on
+    the grid: rounded and clamped, straight through). PARAMETER learns
+    ``zp`` (``abs_binary_sign_grad`` of a parameter, so it never sticks at
+    0); STATS takes ``-stats`` of the weight at each call (a negative
+    minimum becomes a positive shift); PARAMETER_FROM_STATS collects
+    running stats of the activation for ``collect_stats_steps`` training
+    steps and then hands the buffer off to the learned ``value``, with the
+    counter, buffer and handoff semantics of the two-phase scaler: while
+    ``c < steps`` the batch stat is used and folded into the buffer, at
+    ``c == steps`` the buffer is copied to ``value``, and eval reads the
+    buffer while ``c <= steps`` and ``value`` after."""
 
-    def __init__(self, cfg: QuantConfig):
+    def __init__(self, cfg: QuantConfig, bshape: Tuple[int, ...] = (),
+                 runtime: bool = False):
         super().__init__()
-        if ZeroPointImplType(cfg.zero_point_impl) != ZeroPointImplType.ZERO:
-            raise NotImplementedError("only the ZERO zero-point is ported yet")
+        self.impl = ZeroPointImplType(cfg.zero_point_impl)
+        self.cfg = cfg
+        self.bshape = bshape
+        if self.impl == ZeroPointImplType.ZERO:
+            return
+        self.stats_fn = S.stats_fn(cfg.zero_point_stats_op,
+                                   low_percentile_q=cfg.low_percentile_q)
+        if self.impl == ZeroPointImplType.PARAMETER:
+            self.value = nn.Parameter(torch.zeros(bshape))
+        elif self.impl == ZeroPointImplType.PARAMETER_FROM_STATS:
+            if not runtime:
+                raise ValueError("the two-phase zero point is an activation feature")
+            self.steps = int(cfg.collect_stats_steps)
+            self.momentum = cfg.scaling_stats_momentum
+            self.register_buffer("buffer", torch.zeros(bshape))
+            self.value = nn.Parameter(torch.zeros(bshape))
+            self.register_buffer("counter", torch.zeros((), dtype=torch.int32))
 
-    def forward(self, stats_input, scale, bit_width) -> float:
-        return 0.0
+    def _scale_shift(self, zp_linear: torch.Tensor, scale, bit_width) -> torch.Tensor:
+        cfg = self.cfg
+        mi = min_int(cfg.signed, cfg.narrow_range, bit_width)
+        if cfg.quantize_zero_point:
+            return Qf.int_quant_to_int(
+                zp_linear, scale, mi, bit_width, signed=cfg.signed,
+                narrow_range=cfg.narrow_range,
+                clamp_fn=tensor_clamp_ste if cfg.clamp_ste else tensor_clamp)
+        return zp_linear / scale + mi
+
+    def _two_phase(self, stats_input: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return torch.where(self.counter <= self.steps, self.buffer, self.value)
+        c = int(self.counter)
+        if c > self.steps:
+            return self.value
+        stats = _expand(self.stats_fn(stats_input), self.bshape)
+        with torch.no_grad():
+            if c < self.steps:
+                self.buffer.copy_(stats if c == 0 else _momentum_update(
+                    self.buffer, stats, self.momentum, c))
+            else:
+                self.value.copy_(self.buffer)
+            self.counter += 1
+        return stats if c < self.steps else self.value
+
+    def forward(self, stats_input, scale, bit_width):
+        if self.impl == ZeroPointImplType.ZERO:
+            return 0.0
+        if self.impl == ZeroPointImplType.PARAMETER:
+            zp = abs_binary_sign_grad(self.value)
+        elif self.impl == ZeroPointImplType.STATS:
+            return self._scale_shift(-_expand(self.stats_fn(stats_input), self.bshape),
+                                     scale, bit_width)
+        else:
+            zp = abs_binary_sign_grad(self._two_phase(stats_input))
+        return self._scale_shift(zp, scale, bit_width)
 
 
 class QuantDelay(nn.Module):
@@ -282,33 +366,83 @@ def _one_value(v, x: torch.Tensor) -> bool:
             and v.ndim <= x.ndim)
 
 
-def int_fake_quant(x: torch.Tensor, scale, zero_point, bit_width: float, cfg: QuantConfig,
+def kernel_rule(x: torch.Tensor, scale, zero_point, bit_width, float_to_int) -> bool:
+    """``int_fake_quant``'s rule, but for the device: float32, round half to
+    even, one-element scale and zero point, a constant bit width."""
+    return (x.dtype == torch.float32 and float_to_int is round_ste
+            and not torch.is_tensor(bit_width)
+            and _one_value(scale, x) and _one_value(zero_point, x))
+
+
+def int_fake_quant(x: torch.Tensor, scale, zero_point, bit_width, cfg: QuantConfig,
                    float_to_int) -> torch.Tensor:
-    """INT fake-quant of ``x`` under ``cfg``. A per-tensor quantizer that
-    rounds half to even, on a float32 CUDA tensor, launches the fused
-    ``kernels.fake_quant`` (bit for bit the chain); per-channel scales, other
-    roundings and CPU tensors run ``core/quant.py``'s chain, as the JAX
-    package computes every quantizer."""
+    """INT fake-quant of ``x`` under ``cfg``. The rule that sends it to the
+    fused ``kernels.fake_quant`` (bit for bit the chain, forward and
+    gradients): a float32 CUDA tensor, round half to even, a one-element
+    scale and zero point (a learned or quantized zero point included: the
+    backward kernel sums its gradient), and a constant bit width (the
+    kernel's clamp bounds are static numbers; a learned bit width is a
+    tensor whose gradient the chain's clamp bounds carry, which the kernel
+    would drop). Everything else runs ``core/quant.py``'s chain: per-channel
+    scales or zero points, a learned bit width, the other roundings
+    (stochastic included), and every CPU tensor, as the JAX package
+    computes every quantizer."""
     lo = min_int(cfg.signed, cfg.narrow_range, bit_width)
     hi = max_int(cfg.signed, cfg.narrow_range, bit_width)
-    if (x.is_cuda and x.dtype == torch.float32 and float_to_int is round_ste
-            and _one_value(scale, x) and _one_value(zero_point, x)):
+    if x.is_cuda and kernel_rule(x, scale, zero_point, bit_width, float_to_int):
         return fake_quant(x, scale, zero_point, lo, hi, ste_clamp=cfg.clamp_ste)
     return Qf.int_quant(x, scale, zero_point, bit_width, signed=cfg.signed,
                         narrow_range=cfg.narrow_range, float_to_int=float_to_int,
                         clamp_fn=tensor_clamp_ste if cfg.clamp_ste else tensor_clamp)
 
 
-def _check_int(quant_type: QuantType) -> None:
-    if quant_type != QuantType.INT:
+_PORTED_TYPES = (QuantType.INT, QuantType.BINARY, QuantType.TERNARY)
+
+
+def _check_ported(quant_type: QuantType) -> None:
+    if quant_type not in _PORTED_TYPES:
         raise NotImplementedError(f"{quant_type.value} quantization is not ported yet")
 
 
-class ParameterQuantizer(nn.Module):
+class FloatToInt(nn.Module):
+    """The float-to-int map of a config. A static one (round, floor, ceil,
+    round to zero, DPU round) is a straight-through function; stochastic
+    rounding draws uniform [0, 1) noise of the input's shape from a
+    ``torch.Generator`` on the input's device, seeded with 0 (as the JAX
+    package's default ``nnx.Rngs(stochastic_round=0)``; the two streams
+    differ), and rounds ``floor(x + noise)``."""
+
+    def __init__(self, impl: R.FloatToIntImpl):
+        super().__init__()
+        self.stochastic = R.FloatToIntImpl(impl) == R.FloatToIntImpl.STOCHASTIC_ROUND
+        self.fn = None if self.stochastic else R.float_to_int_fn(impl)
+        self.generator: Optional[torch.Generator] = None
+
+    def noise(self, x: torch.Tensor) -> torch.Tensor:
+        if self.generator is None or self.generator.device != x.device:
+            self.generator = torch.Generator(x.device).manual_seed(0)
+        return torch.rand(x.shape, generator=self.generator, device=x.device, dtype=x.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.stochastic:
+            return stochastic_round_ste(x, self.noise(x))
+        return self.fn(x)
+
+
+class _FloatToIntMixin:
+    @property
+    def _float_to_int(self):
+        """What ``int_fake_quant`` compares with ``round_ste``: the static
+        map itself, or the module that draws the noise."""
+        return self.float_to_int if self.float_to_int.stochastic else self.float_to_int.fn
+
+
+class ParameterQuantizer(_FloatToIntMixin, nn.Module):
     """Weight-side quantizer: INT with per-tensor or per-output-channel
-    scaling, or NONE. ``channel_axis`` is the weight's output-channel axis:
-    0 for the port's (out, in) linear weight and for an embedding table's
-    rows (the JAX package's (in, out) linear weight has it at 1)."""
+    scaling, BINARY (``binary_sign(w) * scale``), TERNARY, or NONE.
+    ``channel_axis`` is the weight's output-channel axis: 0 for the port's
+    (out, in) linear weight and for an embedding table's rows (the JAX
+    package's (in, out) linear weight has it at 1)."""
 
     def __init__(self, cfg: QuantConfig, weight_init: torch.Tensor,
                  channel_axis: int = 0):
@@ -320,13 +454,13 @@ class ParameterQuantizer(nn.Module):
         self.per_channel = bool(cfg.scaling_per_output_channel)
         if self.quant_type == QuantType.NONE:
             return
-        _check_int(self.quant_type)
-        self._float_to_int = R.float_to_int_fn(cfg.float_to_int)
+        _check_ported(self.quant_type)
+        self.float_to_int = FloatToInt(cfg.float_to_int)
         self.bit_width_impl = BitWidth(cfg)
         bshape = scaling_broadcast_shape(weight_init.shape, self.per_channel, channel_axis)
         self.scaling = build_scaling(cfg, bshape, init_stats_input=stats_view(
             weight_init, self.per_channel, channel_axis))
-        self.zero_point = ZeroPoint(cfg)
+        self.zero_point = ZeroPoint(cfg, bshape)
         self.delay = QuantDelay(cfg.quant_delay_steps)
 
     def forward(self, w: torch.Tensor) -> QuantTensor:
@@ -334,6 +468,14 @@ class ParameterQuantizer(nn.Module):
         if self.quant_type == QuantType.NONE or self.disable_quant:
             return QuantTensor(w)
         view = stats_view(w, self.per_channel, self.channel_axis)
+        if self.quant_type == QuantType.BINARY:
+            scale = self.scaling(view)
+            y, bit_width = Qf.binary_quant(w, scale)
+            return QuantTensor(self.delay(w, y), scale, 0.0, bit_width, signed=True)
+        if self.quant_type == QuantType.TERNARY:
+            scale = self.scaling(view)
+            y, bit_width = Qf.ternary_quant(w, scale, cfg.ternary_threshold)
+            return QuantTensor(self.delay(w, y), scale, 0.0, bit_width, signed=True)
         bit_width = self.bit_width_impl()
         scale = Qf.rescaling_scale(self.scaling(view), bit_width, signed=cfg.signed,
                                    narrow_range=cfg.narrow_range)
@@ -342,9 +484,11 @@ class ParameterQuantizer(nn.Module):
         return QuantTensor(self.delay(w, y), scale, zp, bit_width, signed=cfg.signed)
 
 
-class ActQuantizer(nn.Module):
+class ActQuantizer(_FloatToIntMixin, nn.Module):
     """Activation-side quantizer: INT with per-tensor or per-channel scaling
-    (``num_channels`` scales over axis 1 of the input), or NONE."""
+    (``num_channels`` scales over axis 1 of the input), BINARY (the input
+    clamped to [-scale, scale], then its sign times the scale), TERNARY, or
+    NONE."""
 
     def __init__(self, cfg: QuantConfig, num_channels: Optional[int] = None):
         super().__init__()
@@ -354,37 +498,44 @@ class ActQuantizer(nn.Module):
         self.per_channel = False
         if self.quant_type == QuantType.NONE:
             return
-        _check_int(self.quant_type)
+        _check_ported(self.quant_type)
         self.per_channel = bool(cfg.scaling_per_output_channel)
         if self.per_channel and num_channels is None:
             raise ValueError("per-channel act quant requires num_channels")
-        self._float_to_int = R.float_to_int_fn(cfg.float_to_int)
+        self.float_to_int = FloatToInt(cfg.float_to_int)
         self.bit_width_impl = BitWidth(cfg)
-        self.scaling = build_scaling(cfg, (num_channels,) if self.per_channel else ())
-        self.zero_point = ZeroPoint(cfg)
+        bshape = (num_channels,) if self.per_channel else ()
+        self.scaling = build_scaling(cfg, bshape)
+        self.zero_point = ZeroPoint(cfg, bshape, runtime=True)
         self.delay = QuantDelay(cfg.quant_delay_steps)
 
     def _stats_view(self, x: torch.Tensor) -> torch.Tensor:
         return stats_view(x, self.per_channel, channel_axis=1)
 
-    def _channel_view(self, scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """A per-channel (C,) scale as (C, 1, ..., 1) against ``x``'s axis 1."""
-        if not self.per_channel:
-            return scale
-        return scale.reshape(-1, *(1,) * (x.ndim - 2))
+    def _channel_view(self, v, x: torch.Tensor):
+        """A per-channel (C,) scale or zero point as (C, 1, ..., 1) against
+        ``x``'s axis 1."""
+        if not self.per_channel or not torch.is_tensor(v) or v.numel() == 1:
+            return v
+        return v.reshape(-1, *(1,) * (x.ndim - 2))
 
     def static_int_params(self):
         """``(scale, bit_width)`` when this INT quantizer's grid does not
         depend on the data (CONST or learned PARAMETER scale, zero
-        zero-point, no delay); gradients flow through the scale into the
-        learned parameter. ``"identity"`` for a NONE quantizer, and None when
-        the quantizer carries per-call state (runtime statistics, the
-        two-phase collection, calibration mode): the caller must then call
-        the quantizer. Lets QuantLSTM fuse its per-step quantizer chain."""
+        zero-point, a constant bit width, no delay); gradients flow through
+        the scale into the learned parameter. ``"identity"`` for a NONE
+        quantizer, and None otherwise: BINARY and TERNARY, per-call state
+        (runtime statistics, the two-phase collection, calibration mode), a
+        zero point other than ZERO, or a learned bit width (QuantLSTM's
+        fused cell takes its bounds from the config's constant width). The
+        caller must then call the quantizer. Lets QuantLSTM fuse its
+        per-step quantizer chain."""
         if self.quant_type == QuantType.NONE:
             return "identity"
         cfg = self.cfg
-        if self.disable_quant or self.per_channel or cfg.quant_delay_steps > 0:
+        if (self.quant_type != QuantType.INT or self.disable_quant or self.per_channel
+                or cfg.quant_delay_steps > 0 or self.bit_width_impl.learned
+                or ZeroPointImplType(cfg.zero_point_impl) != ZeroPointImplType.ZERO):
             return None
         if not isinstance(self.scaling, (ConstScaling, ParameterScaling)):
             return None
@@ -393,21 +544,37 @@ class ActQuantizer(nn.Module):
                                    narrow_range=cfg.narrow_range)
         return scale, bit_width
 
+    def _int_scale(self, view: torch.Tensor, bit_width):
+        cfg = self.cfg
+        return Qf.rescaling_scale(self.scaling(view), bit_width, signed=cfg.signed,
+                                  narrow_range=cfg.narrow_range)
+
     def forward(self, x: torch.Tensor) -> QuantTensor:
         cfg = self.cfg
         if self.quant_type == QuantType.NONE:
             return QuantTensor(x, training=self.training)
         view = self._stats_view(x)
         if self.disable_quant:
-            # calibration mode: the scaling statistics advance, the float
-            # value passes unchanged
-            self.scaling(view)
+            # calibration mode: the scaling and zero-point statistics
+            # advance, the float value passes unchanged
+            if self.quant_type == QuantType.INT:
+                bit_width = self.bit_width_impl()
+                self.zero_point(view, self._int_scale(view, bit_width), bit_width)
+            else:
+                self.scaling(view)
             return QuantTensor(x, training=self.training)
+        if self.quant_type in (QuantType.BINARY, QuantType.TERNARY):
+            scale = self._channel_view(self.scaling(view), x)
+            if self.quant_type == QuantType.BINARY:
+                y, bit_width = Qf.clamped_binary_quant(x, scale)
+            else:
+                y, bit_width = Qf.ternary_quant(x, scale, cfg.ternary_threshold)
+            return QuantTensor(self.delay(x, y), scale, 0.0, bit_width, signed=True,
+                               training=self.training)
         bit_width = self.bit_width_impl()
-        scale = Qf.rescaling_scale(self.scaling(view), bit_width, signed=cfg.signed,
-                                   narrow_range=cfg.narrow_range)
-        scale = self._channel_view(scale, x)
+        scale = self._int_scale(view, bit_width)
         zp = self.zero_point(view, scale, bit_width)
+        scale, zp = self._channel_view(scale, x), self._channel_view(zp, x)
         y = int_fake_quant(x, scale, zp, bit_width, cfg, self._float_to_int)
         return QuantTensor(self.delay(x, y), scale, zp, bit_width,
                            signed=cfg.signed, training=self.training)
@@ -427,7 +594,9 @@ class BiasQuantizer(nn.Module):
         self.disable_quant = False
         if self.quant_type == QuantType.NONE:
             return
-        _check_int(self.quant_type)
+        if self.quant_type != QuantType.INT:
+            raise NotImplementedError(f"{self.quant_type.value} bias quantization is not "
+                                      "ported yet")
         if not cfg.requires_input_scale:
             raise NotImplementedError("a bias scale from the bias's own statistics is not "
                                       "ported yet")

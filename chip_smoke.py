@@ -13,7 +13,8 @@ Phases; any failure exits non-zero and prints no result:
 3. kernels - the GEMM kernels at the LFC shapes (M in {1, 128, 1024}, (K, N) in
              {(784, 1024), (1024, 1024), (1024, 10)}), int8_matmul and
              int4_matmul at the Llama shapes (M in {4096, 16}, the four (K, N)
-             of a block and the head), int8_matmul at serve --decode's four
+             of a block and the head; torch._int_mm's yardstick at M 16 runs
+             on rows padded to 32), int8_matmul at serve --decode's four
              shapes (M 32), and both tensor-core GEMMs and int4_matmul at
              ragged shapes that reach every launcher variant and load path,
              on random full-range codes, held against their plain PyTorch
@@ -95,6 +96,9 @@ Phases; any failure exits non-zero and prints no result:
              on a second run. Times as above; the library point is torch's
              own fake-quant ops, which multiply by 1/s (the Pallas kernel's
              function, not the port's).
+11c. fake_quant_cnv_spread - fake_quant's forward over one cnv_qat step
+             against torch.fake_quantize_per_tensor_affine, 7 times each,
+             alternating: both medians and their spreads.
 12. lstm_qat - bench.py's quantlstm_int8_qat leg at full width: QuantLSTM(128,
              512, num_layers=2) with the leg's quantizers and a Linear(512, 10)
              head on y[:, -1]; one calibration forward (the module cell: no
@@ -142,7 +146,32 @@ Phases; any failure exits non-zero and prints no result:
 12d. bnn_pynq - examples.bnn_pynq.main(["--network", "LFC_4W4A" and then
              "CNV_4W4A", "--dataset", "synthetic", "--epochs", "1"]) on the
              card, its launches counted (CNV_4W4A's const-scale weights
-             launch fake_quant too: 18 and 17 a step).
+             launch fake_quant too: 18 and 17 a step), its checkpoint in a
+             temporary directory.
+12h. bnn_pynq_binary - the same main at the reference's default (no
+             --network: LFC_1W1A) and with --cfg lfc_1w2a, cnv_1w1a and
+             cnv_2w2a: fake_quant launches a step 0 + 0, 4 + 3, 1 + 0 and
+             18 + 17 (binary quantizers run their plain sign ops, as the JAX
+             package does: it has no kernel for them).
+12i. binary_qat - lfc_qat's step at lfc(1, 2, 2), batch 1024, and cnv_qat's
+             at cnv(2, 2, 8) with the trainer's const-scale weights, batch
+             256, each in bf16 operands and float32, checked as 12b and 12c:
+             4 + 3 and 18 + 17 fake_quant launches a step.
+12j. quant_options - each quantizer option of slice 8 at (1024, 1024) on
+             the card against the same module copied to the CPU, one call
+             with a gradient: ROUND_TO_ZERO, DPU_ROUND, the INT restriction,
+             STATS zero points per tensor and per channel, a learned zero
+             point (quantized and not), learned bit widths and stochastic
+             rounding (both sides fed the same noise): values, scales, zero
+             points and bit widths bit for bit, gradients within 6e-4 of sum
+             |g| (1 + max |x|), fake_quant launched only where
+             int_fake_quant's rule sends it (per tensor, round half to even,
+             a constant bit width); the learned zero point's dzp from the
+             backward kernel within 1e-5 of sum |term| of the float64 sum
+             of its terms, the plain chain's autograd sum within 6e-4; and
+             ShiftedUint8ActPerTensorFloat's two-phase zero point over 3
+             collection calls, the handoff and one after, then eval, its
+             state bit for bit with the CPU copy at every call.
 12e. exact_route - Int8InferenceConv's exact integer route at QuartzNet's
              depthwise shapes (k 33 at stride 2 and 1, k 75, k 87 at dilation
              2; float32: the worst-case sum stays below 2^24) and at CNV's
@@ -187,6 +216,7 @@ import contextlib
 import copy
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -391,16 +421,20 @@ def phase_kernels(dev, peaks):
             t_k = cuda_ms(lambda: int8_matmul(x, w, xs, ws, b))
             t_call = cuda_ms(lambda: int8_matmul(x, w, xs, ws, b), device_only=False)
             t_p = cuda_ms(lambda: int8_matmul_reference(x, w, xs, ws, b))
-            if m > 16 and k % 8 == 0:
-                # torch._int_mm needs N % 8 == 0: a head of another N (LFC's
-                # 10, QuartzNet's decoder's 29) is timed on weights stored
-                # padded with zero columns, the padding's output dropped
+            if k % 8 == 0:
+                # torch._int_mm needs N % 8 == 0 and M > 16: a head of another
+                # N (LFC's 10, QuartzNet's decoder's 29) is timed on weights
+                # stored padded with zero columns, and an M of 16 or less (a
+                # decode step's) on activations padded with zero rows to 32,
+                # the padding's output dropped
                 w_l = torch.nn.functional.pad(w, (0, -n % 8))
-                t_l = cuda_ms(lambda: torch._int_mm(x, w_l)[:, :n].to(torch.float32)
+                x_l = torch.nn.functional.pad(x, (0, 0, 0, 32 - m)) if m <= 16 else x
+                t_l = cuda_ms(lambda: torch._int_mm(x_l, w_l)[:m, :n].to(torch.float32)
                               * (xs * ws) + b)
-                lib = f"{t_l:.4f}" + (f"(N padded to {w_l.shape[1]})" if n % 8 else "")
+                lib = f"{t_l:.4f}" + (f"(N padded to {w_l.shape[1]})" if n % 8 else "") + (
+                    f"(M padded to {x_l.shape[0]})" if m <= 16 else "")
             else:
-                t_l, lib = None, "n/a(_int_mm needs M>16, K%8=0)"
+                t_l, lib = None, "n/a(_int_mm needs K%8=0)"
             nbytes = m * k + k * n + 4 + 8 * n + 4 * m * n
             t_b, by = bound(nbytes, 2.0 * m * n * k, bw, int8_peak)
             rows.append(dict(kernel="int8_matmul", m=m, k=k, n=n, ms=t_k, plain_ms=t_p,
@@ -2163,6 +2197,44 @@ def phase_fake_quant_kernels(dev, bw) -> list:
     return rows
 
 
+FQ_SPREAD_REPS = 7  # alternating kernel / library measurements of the CNV step's forward
+FQ_SPREAD_WINDOWS = 9  # cuda_ms windows of each measurement (its median)
+
+
+def phase_fake_quant_cnv_spread(dev) -> dict:
+    """fake_quant's forward over one cnv_qat step (CNV_FQ_STEP_SHAPES, in the
+    path's case) against torch.fake_quantize_per_tensor_affine on the same
+    inputs, FQ_SPREAD_REPS times each, alternating: the medians of the two
+    step sums and the spread (max - min) of each, so that a difference can
+    be told from the drift between runs."""
+    from brevitas_tpu_torch.kernels import fake_quant
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    scale = torch.ones((), device=dev) / torch.full((), 7.0, device=dev)
+    s_host = float(scale)
+    xs = [(torch.randn(sh, generator=g, device=dev), n) for sh, n, _ in CNV_FQ_STEP_SHAPES]
+    kern, lib = [], []
+    with torch.no_grad():
+        for _ in range(FQ_SPREAD_REPS):
+            kern.append(sum(n * cuda_ms(lambda x=x: fake_quant(x, scale, 0.0, -7.0, 7.0),
+                                        reps=FQ_SPREAD_WINDOWS) for x, n in xs))
+            lib.append(sum(n * cuda_ms(lambda x=x: torch.fake_quantize_per_tensor_affine(
+                x, s_host, 0, -7, 7), reps=FQ_SPREAD_WINDOWS) for x, n in xs))
+    out = {"reps": FQ_SPREAD_REPS, "kernel_ms": kern, "library_ms": lib,
+           "kernel_median": statistics.median(kern), "library_median": statistics.median(lib),
+           "kernel_spread": max(kern) - min(kern), "library_spread": max(lib) - min(lib)}
+    out["median_gap"] = out["kernel_median"] - out["library_median"]
+    out["kernel_loses_beyond_spread"] = out["median_gap"] > max(out["kernel_spread"],
+                                                                out["library_spread"])
+    print(f"[fake_quant_cnv_spread] one cnv_qat step's forward ({sum(n for _, n in xs)} "
+          f"launches), {FQ_SPREAD_REPS} alternating runs on {CARD[0]}: kernel median "
+          f"{out['kernel_median']:.5f} ms (spread {out['kernel_spread']:.5f}), "
+          f"torch.fake_quantize_per_tensor_affine median {out['library_median']:.5f} ms "
+          f"(spread {out['library_spread']:.5f}); gap {out['median_gap']:.5f} ms, beyond the "
+          f"spread: {out['kernel_loses_beyond_spread']}")
+    return out
+
+
 def fake_quant_step_sums(rows, name, step_shapes) -> dict:
     """A fake_quant kernel's times over one training step: its launches at
     the step's shapes."""
@@ -2222,10 +2294,12 @@ LFC_QAT_CPU_LOSS_RTOL = 1e-5  # the card's first loss against a CPU copy's
 LFC_QAT_FQ = (8, 7)
 
 
-def phase_lfc_qat(dev, bf16: bool) -> dict:
+def phase_lfc_qat(dev, bf16: bool, bits=(4, 4, 4), fq=LFC_QAT_FQ, name="lfc_qat") -> dict:
     """bench's lfc_int4_qat step at full width through the port's trainer
     step (examples.bnn_pynq.train_step), a warm-up and LFC_QAT_STEPS timed
-    steps, in bf16 operands (bench's default) or float32. A copy on the card
+    steps, in bf16 operands (bench's default) or float32; ``bits`` (weight,
+    act, input) and ``fq`` (fake_quant launches a step, forward and
+    backward) run the same step at other widths (binary_qat). A copy on the card
     runs the plain chain in every quantizer: the warm-up step's loss and
     every gradient the same bits; each later step's loss difference
     reported. A CPU copy's first loss within LFC_QAT_CPU_LOSS_RTOL (BatchNorm
@@ -2234,9 +2308,9 @@ def phase_lfc_qat(dev, bf16: bool) -> dict:
     from brevitas_tpu_torch.models import lfc
     from brevitas_tpu_torch.utils import set_compute_dtype
 
-    what = f"lfc_qat_{'bf16' if bf16 else 'float32'}"
+    what = f"{name}_{'bf16' if bf16 else 'float32'}"
     gc.collect()
-    model = lfc(4, 4, 4, dropout=0.0, generator=torch.Generator().manual_seed(0), device=dev)
+    model = lfc(*bits, dropout=0.0, generator=torch.Generator().manual_seed(0), device=dev)
     if bf16:
         set_compute_dtype(model, torch.bfloat16)
     plain = copy.deepcopy(model)
@@ -2275,7 +2349,7 @@ def phase_lfc_qat(dev, bf16: bool) -> dict:
           f"(relative {cpu_dev:.3g}); launches {warm_counts}")
     if cpu_dev > LFC_QAT_CPU_LOSS_RTOL:
         raise AssertionError(f"{what}: the card's first loss is {cpu_dev:.3g} from a CPU copy's")
-    fq_want = {"fake_quant": LFC_QAT_FQ[0], "fake_quant_backward": LFC_QAT_FQ[1]}
+    fq_want = {"fake_quant": fq[0], "fake_quant_backward": fq[1]}
     if any(warm_counts[k] != v for k, v in fq_want.items()):
         raise AssertionError(f"{what}: fake_quant launches {warm_counts}, expected {fq_want}")
 
@@ -2529,10 +2603,13 @@ def forced_act_codes(model, want: list, flips: list, quantizers=None):
             h.remove()
 
 
-def phase_cnv_qat(dev, bits: int, bf16: bool) -> dict:
+def phase_cnv_qat(dev, bits: int, bf16: bool, per_channel: bool = True, fq=CNV_QAT_FQ,
+                  name=None) -> dict:
     """bench's cnv_int{bits}pc_qat step at full width through the port's
     trainer step (examples.bnn_pynq.train_step), a warm-up and CNV_QAT_STEPS
-    timed steps, in bf16 operands (bench's default) or float32. A copy on
+    timed steps, in bf16 operands (bench's default) or float32;
+    ``per_channel`` False runs the trainer's const-scale weights (binary_qat's
+    cnv(2, 2, 8)), with ``fq`` fake_quant launches a step. A copy on
     the card runs the plain chain in every quantizer: the warm-up's loss and
     every gradient the same bits, each later step's loss difference
     reported. The path calls no cuDNN (the convs are a patch matrix times
@@ -2545,9 +2622,9 @@ def phase_cnv_qat(dev, bits: int, bf16: bool) -> dict:
     from brevitas_tpu_torch.models import cnv
     from brevitas_tpu_torch.utils import set_compute_dtype
 
-    what = f"cnv_qat_int{bits}pc_{'bf16' if bf16 else 'float32'}"
+    what = f"{name or f'cnv_qat_int{bits}pc'}_{'bf16' if bf16 else 'float32'}"
     gc.collect()
-    model = cnv(bits, bits, 8, per_channel_weights=True,
+    model = cnv(bits, bits, 8, per_channel_weights=per_channel,
                 generator=torch.Generator().manual_seed(0), device=dev)
     if bf16:
         set_compute_dtype(model, torch.bfloat16)
@@ -2593,7 +2670,7 @@ def phase_cnv_qat(dev, bits: int, bf16: bool) -> dict:
           f"at certified ties (by quantizer {flips}); launches {warm_counts}")
     if cpu_dev > CNV_QAT_CPU_LOSS_RTOL:
         raise AssertionError(f"{what}: the card's first loss is {cpu_dev:.3g} from a CPU copy's")
-    fq_want = {"fake_quant": CNV_QAT_FQ[0], "fake_quant_backward": CNV_QAT_FQ[1]}
+    fq_want = {"fake_quant": fq[0], "fake_quant_backward": fq[1]}
     if any(warm_counts[k] != v for k, v in fq_want.items()):
         raise AssertionError(f"{what}: fake_quant launches {warm_counts}, expected {fq_want}")
 
@@ -2651,29 +2728,272 @@ def phase_cnv_qat(dev, bits: int, bf16: bool) -> dict:
 
 def phase_bnn_pynq(dev) -> dict:
     """The trainer's entry point on the card: examples.bnn_pynq.main on
-    synthetic data for one epoch (20 steps at batch 100, then the evaluation
-    of 512 images in 2 batches), LFC_4W4A and CNV_4W4A."""
+    synthetic data for one epoch (run_trainer), LFC_4W4A and CNV_4W4A."""
+    return {network: run_trainer(["--network", network], fq,
+                                 "bnn_pynq" if network == "LFC_4W4A"
+                                 else f"bnn_pynq_{network.lower()}", dev)
+            for network, fq in (("LFC_4W4A", LFC_QAT_FQ), ("CNV_4W4A", CNV_TRAINER_FQ))}
+
+
+def run_trainer(argv, fq, path: str, dev) -> dict:
+    """examples.bnn_pynq.main on synthetic data for one epoch (20 steps at
+    batch 100, then the evaluation of 512 images in 2 batches), its
+    checkpoint in a temporary directory, its launches counted against ``fq``
+    (fake_quant launches a step, forward and backward; the evaluation
+    launches the forward's)."""
+    import tempfile
+
     from brevitas_tpu_torch.examples import bnn_pynq
 
+    _reset_launch_counts()
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.perf_counter()
+        acc = bnn_pynq.main(argv + ["--dataset", "synthetic", "--epochs", "1", "--device",
+                                    str(dev), "--ckpt-dir", ckpt])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        saved = sorted(os.listdir(ckpt))
+    counts = _launch_counts()
+    _record_path(path, counts)
+    steps, evals = 2048 // 100, 2
+    want = {k: 0 for k in counts}
+    want.update(fake_quant=fq[0] * (steps + evals), fake_quant_backward=fq[1] * steps)
+    print(f"[{path}] main {argv}: val acc {acc} (synthetic labels: chance), "
+          f"{seconds:.2f} s with the evaluation, checkpoint {saved}, launches {counts}")
+    if counts != want:
+        raise AssertionError(f"{path}: launches {counts}, expected {want}")
+    if not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"{path}: accuracy {acc}")
+    return {"val_acc": acc, "launches": counts, "seconds": seconds, "checkpoint": saved}
+
+
+# the trainer's reference defaults and shipped 1- and 2-bit configs: fake_quant
+# launches a step (forward, backward). LFC_1W1A is binary throughout; LFC_1W2A
+# quantizes its 2-bit input and three activations (the input needs no
+# gradient); CNV_1W1A's only INT quantizer is its 8-bit input; CNV_2W2A's nine
+# const-scale weights, 8 activations and input are all per-tensor INT
+BINARY_TRAINER_RUNS = [("default LFC_1W1A", [], (0, 0)), ("lfc_1w2a", ["--cfg", "lfc_1w2a"], (4, 3)),
+                       ("cnv_1w1a", ["--cfg", "cnv_1w1a"], (1, 0)),
+                       ("cnv_2w2a", ["--cfg", "cnv_2w2a"], (18, 17))]
+
+
+def phase_bnn_pynq_binary(dev) -> dict:
+    """The trainer's main at its reference default (no --network: LFC_1W1A)
+    and with --cfg lfc_1w2a, cnv_1w1a and cnv_2w2a."""
+    return {name: run_trainer(argv, fq, f"bnn_pynq_binary_{name.split()[-1].lower()}", dev)
+            for name, argv, fq in BINARY_TRAINER_RUNS}
+
+
+# bench's lfc_qat and cnv_qat steps at the 1- and 2-bit widths of the shipped
+# configs: lfc(1, 2, 2) at batch 1024 and cnv(2, 2, 8) with const-scale weights
+# at batch 256; fake_quant launches a step (forward, backward)
+BINARY_QAT_LFC = ((1, 2, 2), (4, 3))
+BINARY_QAT_CNV = (2, (18, 17))
+
+
+def phase_binary_qat(dev) -> dict:
     out = {}
-    for network, fq in (("LFC_4W4A", LFC_QAT_FQ), ("CNV_4W4A", CNV_TRAINER_FQ)):
-        path = "bnn_pynq" if network == "LFC_4W4A" else f"bnn_pynq_{network.lower()}"
+    for d in ("bf16", "float32"):
+        out[f"lfc_1w2a_{d}"] = phase_lfc_qat(dev, d == "bf16", bits=BINARY_QAT_LFC[0],
+                                             fq=BINARY_QAT_LFC[1], name="binary_qat_lfc_1w2a")
+        out[f"cnv_2w2a_{d}"] = phase_cnv_qat(dev, BINARY_QAT_CNV[0], d == "bf16",
+                                             per_channel=False, fq=BINARY_QAT_CNV[1],
+                                             name="binary_qat_cnv_2w2a")
+    return out
+
+
+QO_SHAPE = (1024, 1024)
+QO_TWO_PHASE_STEPS, QO_TWO_PHASE_CALLS = 3, 5
+# a gradient that autograd sums over the tensor (a scale's, a zero point's, a
+# learned bit width's, an input's through the statistics): the card against
+# its CPU copy within this share of sum |g| (1 + max |x|), the size of the
+# parts such a sum adds (ROADMAP S8: 6e-4 of sum |term| for float32 autograd
+# sums over a million elements)
+QO_GRAD_RTOL = 6e-4
+
+
+def quant_option_cases():
+    """name -> (side, config, (fake_quant, fake_quant_backward) launches of
+    one call whose input needs a gradient)."""
+    from brevitas_tpu_torch.quant import presets
+    from brevitas_tpu_torch.quant.config import ScalingImplType, ZeroPointImplType
+
+    int8w = presets.Int8WeightPerTensorFloat
+    zp_act = presets.Uint8ActPerTensorFloat.let(scaling_impl=ScalingImplType.CONST,
+                                                scaling_const=2.0,
+                                                zero_point_impl=ZeroPointImplType.PARAMETER)
+    return {
+        "round_to_zero": ("weight", int8w.let(float_to_int="round_to_zero"), (0, 0)),
+        "dpu_round": ("weight", int8w.let(float_to_int="dpu_round", bit_width=3.0), (0, 0)),
+        "int_restrict": ("weight", int8w.let(scaling_impl=ScalingImplType.PARAMETER,
+                                             scaling_const=3.3, restrict_scaling="int"), (1, 1)),
+        "shifted_weight": ("weight", presets.ShiftedUint8WeightPerTensorFloat, (1, 1)),
+        "shifted_weight_per_channel": ("weight", presets.ShiftedUint8WeightPerChannelFloat,
+                                       (0, 0)),
+        "zp_parameter": ("act", zp_act, (1, 1)),
+        "zp_parameter_quantized": ("act", zp_act.let(quantize_zero_point=True), (1, 1)),
+        "learned_bit_width_weight": ("weight", presets.Int8WeightPerTensorFloatLearnedBitWidth,
+                                     (0, 0)),
+        "learned_bit_width_act": ("act", presets.Int8ActPerTensorFloatLearnedBitWidth, (0, 0)),
+        "stochastic_round": ("act", presets.Int8ActPerTensorFloat.let(
+            float_to_int="stochastic_round", scaling_impl=ScalingImplType.CONST,
+            scaling_const=1.5, bit_width=4.0), (0, 0)),
+    }
+
+
+def _quant_call(q, x, g):
+    """One call with a gradient: (output QuantTensor, input gradient,
+    parameter gradients)."""
+    x = x.detach().clone().requires_grad_()
+    for p in q.parameters():
+        p.grad = None
+    qt = q(x)
+    (qt.value * g).sum().backward()
+    return qt, x.grad, {n: None if p.grad is None else p.grad.detach().clone()
+                        for n, p in q.named_parameters()}
+
+
+def _same(a, b) -> bool:
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return torch.equal(a.detach().cpu().reshape(-1), b.detach().cpu().reshape(-1))
+
+
+def _check_quant_call(what, card, cpu, x, g, bits_grads=False) -> float:
+    """The card's call against its CPU copy's: values, scale, zero point and
+    bit width bit for bit; gradients within QO_GRAD_RTOL of their parts.
+    Returns the worst gradient difference as a share of that size."""
+    (qt, dx, grads), (qt_c, dx_c, grads_c) = card, cpu
+    for name, a, b in (("value", qt.value, qt_c.value), ("scale", qt.scale, qt_c.scale),
+                       ("zero point", qt.zero_point, qt_c.zero_point),
+                       ("bit width", qt.bit_width, qt_c.bit_width)):
+        if not _same(a, b):
+            raise AssertionError(f"quant_options {what}: the {name} differs from the CPU copy's")
+    size = float(g.abs().sum()) * (1.0 + float(x.abs().max()))
+    worst = float((dx.cpu() - dx_c).abs().max()) / size
+    for n, v in grads.items():
+        v_c = grads_c[n]
+        if (v is None) != (v_c is None):
+            raise AssertionError(f"quant_options {what}: {n} has a gradient on one side only")
+        if v is not None:
+            worst = max(worst, float((v.cpu() - v_c).abs().max()) / size)
+    if worst > QO_GRAD_RTOL:
+        raise AssertionError(f"quant_options {what}: a gradient differs from the CPU copy's by "
+                             f"{worst:.3g} of sum |g| (1 + max |x|)")
+    return worst
+
+
+def check_learned_zp_sums(dev, q, x, g) -> dict:
+    """The learned zero point's dzp from the backward kernel against the
+    plain chain's autograd sum on the card, both against the float64 sum of
+    the per-element terms: the kernel within FQ_SUM_RTOL of sum |term|, the
+    autograd sum within QO_GRAD_RTOL (ROADMAP S8)."""
+    from brevitas_tpu_torch.kernels import fake_quant_backward, fake_quant_backward_reference
+    from brevitas_tpu_torch.kernels.fake_quant import fake_quant_scale_terms
+    from brevitas_tpu_torch.ops import max_int, min_int
+
+    with torch.no_grad():
+        qt = q(x)
+    cfg = q.cfg
+    lo, hi = min_int(cfg.signed, cfg.narrow_range, 8.0), max_int(cfg.signed, cfg.narrow_range, 8.0)
+    scale, zp = qt.scale.detach().reshape(()), qt.zero_point.detach().reshape(())
+    _, _, dz_k = fake_quant_backward(x, scale, zp, g, lo, hi)
+    _, _, dz_a = fake_quant_backward_reference(x, scale, zp, g, lo, hi)
+    _, dz_terms, _ = fake_quant_scale_terms(x, scale, zp, g, lo, hi)
+    torch.cuda.synchronize()
+    exact, mass = float(dz_terms.sum()), float(dz_terms.abs().sum())
+    out = {"dzp_kernel": float(dz_k), "dzp_autograd": float(dz_a), "dzp_f64": exact,
+           "sum_abs_terms": mass, "kernel_share": abs(float(dz_k) - exact) / mass,
+           "autograd_share": abs(float(dz_a) - exact) / mass,
+           "clamped": int((dz_terms != 0).sum())}
+    if out["kernel_share"] > FQ_SUM_RTOL or out["autograd_share"] > QO_GRAD_RTOL:
+        raise AssertionError(f"quant_options: learned zero point's dzp {out}")
+    return out
+
+
+def phase_quant_options(dev) -> dict:
+    """Each quantizer option of slice 8 at QO_SHAPE on the card against the
+    same module copied to the CPU (one call with a gradient), its launches
+    counted; the learned zero point's dzp sums; and the two-phase zero point
+    (ShiftedUint8ActPerTensorFloat at QO_TWO_PHASE_STEPS collection steps)
+    over QO_TWO_PHASE_CALLS training calls through its handoff, then in
+    eval, with its state, against a CPU copy."""
+    from brevitas_tpu_torch.quant import presets
+    from brevitas_tpu_torch.quant.quantizers import ActQuantizer, ParameterQuantizer
+
+    rng = np.random.default_rng(21)
+    out = {}
+    for i, (name, (side, cfg, fq)) in enumerate(quant_option_cases().items()):
+        x = torch.from_numpy((rng.standard_normal(QO_SHAPE) * 1.3 + 0.2).astype(np.float32))
+        g = torch.from_numpy(rng.standard_normal(QO_SHAPE).astype(np.float32))
+        q = ParameterQuantizer(cfg, x) if side == "weight" else ActQuantizer(cfg)
+        with torch.no_grad():
+            if name.startswith("zp_parameter"):
+                q.zero_point.value.fill_(0.37)
+            if name.startswith("learned_bit_width"):
+                q.bit_width_impl.offset.fill_(3.4)  # round(|3.4| + 2) = 5 bits
+        card = copy.deepcopy(q).to(dev)
+        if name == "stochastic_round":
+            # the same noise on both sides: the generators of the card and
+            # the CPU draw different streams
+            noise = torch.from_numpy(rng.random(QO_SHAPE, dtype=np.float32))
+            q.float_to_int.noise = lambda v: noise
+            card.float_to_int.noise = lambda v, n=noise.to(dev): n
+        xd, gd = x.to(dev), g.to(dev)
         _reset_launch_counts()
-        acc = bnn_pynq.main(["--network", network, "--dataset", "synthetic", "--epochs", "1",
-                             "--device", str(dev)])
+        res = _quant_call(card, xd, gd)
         torch.cuda.synchronize()
         counts = _launch_counts()
-        _record_path(path, counts)
-        steps, evals = 2048 // 100, 2
-        want = {k: 0 for k in counts}
-        want.update(fake_quant=fq[0] * (steps + evals), fake_quant_backward=fq[1] * steps)
-        print(f"[{path}] main {network}: val acc {acc} (synthetic labels: chance), "
-              f"launches {counts}")
-        if counts != want:
-            raise AssertionError(f"{path}: launches {counts}, expected {want}")
-        if not 0.0 <= acc <= 1.0:
-            raise AssertionError(f"{path}: accuracy {acc}")
-        out[network] = {"val_acc": acc, "launches": counts}
+        worst = _check_quant_call(name, res, _quant_call(q, x, g), x, g)
+        got = (counts["fake_quant"], counts["fake_quant_backward"])
+        if got != fq or sum(counts.values()) != sum(got):
+            raise AssertionError(f"quant_options {name}: launches {counts}, expected {fq}")
+        out[name] = {"launches": got, "grad_share": worst}
+        if name == "zp_parameter":
+            out[name]["dzp"] = check_learned_zp_sums(dev, card, xd, gd)
+        print(f"[quant_options] {name} {QO_SHAPE}: value, scale, zero point and bit width bit "
+              f"for bit with the CPU copy, gradients within {worst:.3g} of sum |g| (1 + max "
+              f"|x|); fake_quant launches {got}" + (f"; dzp {out[name]['dzp']}"
+                                                    if "dzp" in out[name] else ""))
+
+    # the two-phase zero point through its handoff
+    cfg = presets.ShiftedUint8ActPerTensorFloat.let(collect_stats_steps=QO_TWO_PHASE_STEPS)
+    q = ActQuantizer(cfg)
+    card = copy.deepcopy(q).to(dev)
+    calls, launched = [], [0, 0]
+    for i in range(QO_TWO_PHASE_CALLS):
+        x = torch.from_numpy((rng.standard_normal(QO_SHAPE) * 1.3 + 0.2).astype(np.float32))
+        g = torch.from_numpy(rng.standard_normal(QO_SHAPE).astype(np.float32))
+        _reset_launch_counts()
+        res = _quant_call(card, x.to(dev), g.to(dev))
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        launched = [launched[0] + counts["fake_quant"],
+                    launched[1] + counts["fake_quant_backward"]]
+        worst = _check_quant_call(f"two_phase call {i}", res, _quant_call(q, x, g), x, g)
+        state, state_c = card.state_dict(), q.state_dict()
+        differ = [k for k in state_c if not _same(state[k], state_c[k])]
+        if differ:
+            raise AssertionError(f"quant_options two_phase call {i}: state differs: {differ}")
+        calls.append({"zero_point": float(card.zero_point.value.detach() if i >= QO_TWO_PHASE_STEPS
+                                          else card.zero_point.buffer),
+                      "counter": int(card.zero_point.counter), "grad_share": worst})
+    card.eval()
+    q.eval()
+    x = torch.from_numpy((rng.standard_normal(QO_SHAPE) * 1.3 + 0.2).astype(np.float32))
+    with torch.no_grad():
+        ev, ev_c = card(x.to(dev)), q(x)
+    if not (_same(ev.value, ev_c.value) and _same(ev.zero_point, ev_c.zero_point)):
+        raise AssertionError("quant_options two_phase: eval differs from the CPU copy's")
+    want = (QO_TWO_PHASE_CALLS, QO_TWO_PHASE_CALLS)
+    if tuple(launched) != want:
+        raise AssertionError(f"quant_options two_phase: launches {launched}, expected {want}")
+    if int(card.zero_point.counter) != QO_TWO_PHASE_STEPS + 1:
+        raise AssertionError("quant_options two_phase: the counter did not stop after handoff")
+    out["two_phase_zero_point"] = {"calls": calls, "launches": want}
+    print(f"[quant_options] two-phase zero point {QO_SHAPE}, {QO_TWO_PHASE_STEPS} collection "
+          f"calls, the handoff and {QO_TWO_PHASE_CALLS - QO_TWO_PHASE_STEPS - 1} after: values, "
+          f"zero points and state (buffers, values, counters) bit for bit with the CPU copy at "
+          f"every call and in eval; {calls}; fake_quant launches {want}")
     return out
 
 
@@ -3197,6 +3517,18 @@ def prefill_attention_entry(attn_rows, launches) -> dict:
     return entry
 
 
+PHASE_SECONDS = {}  # each phase's wall time, in the report
+
+
+def timed(name: str, fn, *args, **kw):
+    """Run one phase and keep its wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    print(f"[phase] {name}: {PHASE_SECONDS[name]:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a card",
@@ -3213,29 +3545,38 @@ def main() -> int:
     sheet, peaks = peaks_for(kind)
     print(f"[kernels] bounds from the {sheet} data sheet: {peaks[0] / 1e12} TB/s, "
           f"{peaks[1] / 1e12} int8 TOP/s, {peaks[2] / 1e12} bf16 TFLOP/s")
-    rows = phase_kernels(dev, peaks)
-    crossover = phase_int8_crossover(dev)
-    rows += phase_int4_kernel(dev, peaks)
-    int4_crossover = phase_int4_crossover(dev)
-    attn_rows = phase_attention_kernels(dev, peaks)
-    lstm_rows = phase_lstm_kernels(dev, VECTOR_PEAKS[sheet], peaks[0])
-    fq_rows = phase_fake_quant_kernels(dev, peaks[0])
-    serve_out, serve_int8 = phase_serve(dev)
-    lfc_launches = phase_lfc(dev)
-    prefill = phase_llama_prefill(dev)
-    decode = {"int8kv": phase_llama_decode(dev, None), "int4kv": phase_llama_decode(dev, 4)}
-    w4a8_prefill = phase_llama_prefill(dev, w4a8=True)
-    w4a8_decode = phase_llama_decode(dev, None, w4a8=True)
-    serve_decode = phase_serve_decode(dev)
-    lstm = {"float32": phase_lstm_qat(dev), "bf16": phase_lstm_qat(dev, bf16=True)}
-    lfc_qat = {"bf16": phase_lfc_qat(dev, bf16=True), "float32": phase_lfc_qat(dev, bf16=False)}
-    convs = check_convs(dev)
-    cnv_qat = {f"int{b}pc_{d}": phase_cnv_qat(dev, b, bf16=d == "bf16")
+    rows = timed("kernels", phase_kernels, dev, peaks)
+    crossover = timed("int8_crossover", phase_int8_crossover, dev)
+    rows += timed("int4_kernel", phase_int4_kernel, dev, peaks)
+    int4_crossover = timed("int4_crossover", phase_int4_crossover, dev)
+    attn_rows = timed("attention_kernels", phase_attention_kernels, dev, peaks)
+    lstm_rows = timed("lstm_kernels", phase_lstm_kernels, dev, VECTOR_PEAKS[sheet], peaks[0])
+    fq_rows = timed("fake_quant_kernels", phase_fake_quant_kernels, dev, peaks[0])
+    fq_spread = timed("fake_quant_cnv_spread", phase_fake_quant_cnv_spread, dev)
+    serve_out, serve_int8 = timed("serve", phase_serve, dev)
+    lfc_launches = timed("lfc", phase_lfc, dev)
+    prefill = timed("llama_prefill", phase_llama_prefill, dev)
+    decode = {"int8kv": timed("llama_decode_int8kv", phase_llama_decode, dev, None),
+              "int4kv": timed("llama_decode_int4kv", phase_llama_decode, dev, 4)}
+    w4a8_prefill = timed("llama_w4a8_prefill", phase_llama_prefill, dev, w4a8=True)
+    w4a8_decode = timed("llama_w4a8_decode", phase_llama_decode, dev, None, w4a8=True)
+    serve_decode = timed("serve_decode", phase_serve_decode, dev)
+    lstm = {"float32": timed("lstm_qat_float32", phase_lstm_qat, dev),
+            "bf16": timed("lstm_qat_bf16", phase_lstm_qat, dev, bf16=True)}
+    lfc_qat = {d: timed(f"lfc_qat_{d}", phase_lfc_qat, dev, bf16=d == "bf16")
+               for d in ("bf16", "float32")}
+    convs = timed("convs", check_convs, dev)
+    cnv_qat = {f"int{b}pc_{d}": timed(f"cnv_qat_int{b}pc_{d}", phase_cnv_qat, dev, b,
+                                      bf16=d == "bf16")
                for b in CNV_QAT_BITS for d in ("bf16", "float32")}
-    trainer = phase_bnn_pynq(dev)
-    exact_route = check_exact_route(dev)
-    quartznet = phase_quartznet_serving(dev)
-    mobilenet = {d: phase_mobilenet_qat(dev, bf16=d == "bf16") for d in ("bf16", "float32")}
+    trainer = timed("bnn_pynq", phase_bnn_pynq, dev)
+    binary_trainer = timed("bnn_pynq_binary", phase_bnn_pynq_binary, dev)
+    binary_qat = timed("binary_qat", phase_binary_qat, dev)
+    quant_options = timed("quant_options", phase_quant_options, dev)
+    exact_route = timed("exact_route", check_exact_route, dev)
+    quartznet = timed("quartznet_serving", phase_quartznet_serving, dev)
+    mobilenet = {d: timed(f"mobilenet_qat_{d}", phase_mobilenet_qat, dev, bf16=d == "bf16")
+                 for d in ("bf16", "float32")}
 
     int8_by_path = {"serve": serve_int8, "lfc8": lfc_launches["int8_matmul"],
                     "llama_prefill": prefill["launches"]["int8_matmul"],
@@ -3313,7 +3654,8 @@ def main() -> int:
         *(fake_quant_summary(fq_rows, name, sum(
             PATH_COUNTS[path][name] for path in
             [f"lfc_qat_{d}" for d in lfc_qat] + [f"cnv_qat_{k}" for k in cnv_qat]
-            + [f"mobilenet_qat_{d}" for d in mobilenet] + ["quartznet_serving"]))
+            + [f"mobilenet_qat_{d}" for d in mobilenet] + ["quartznet_serving"]
+            + [f"binary_qat_{k}" for k in binary_qat]))
           for name in ("fake_quant", "fake_quant_backward")),
     ], "serve": serve_out,
         "llama_prefill": {k: v for k, v in prefill.items() if k != "profile"},
@@ -3331,11 +3673,16 @@ def main() -> int:
                     for k, run in cnv_qat.items()},
         "convs": convs,
         "bnn_pynq": trainer,
+        "bnn_pynq_binary": binary_trainer,
+        "binary_qat": {k: {kk: vv for kk, vv in run.items() if kk != "profile"}
+                       for k, run in binary_qat.items()},
+        "quant_options": quant_options,
         "exact_route": exact_route,
         "quartznet_serving": {k: v for k, v in quartznet.items() if k != "profile"},
         "mobilenet_qat": {d: {k: v for k, v in run.items() if k != "profile"}
                           for d, run in mobilenet.items()},
-        "seconds": time.perf_counter() - t0}
+        "phase_seconds": PHASE_SECONDS, "seconds": time.perf_counter() - t0}
+    report["kernels"][-2]["cnv_step_forward_spread"] = fq_spread
     for entry in report["kernels"]:
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in PATH_COUNTS.items()}

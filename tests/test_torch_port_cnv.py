@@ -448,11 +448,15 @@ def test_restrict_matches_jax(jax_ref, i):
 
 
 def test_restrict_fp_passes_and_int_is_not_ported():
+    """FP passes its value. The INT restriction is ported since slice 8: it
+    stores the value as it is and rounds it (parity with JAX in
+    ``tests/test_torch_port_quant_options.py``)."""
     v = torch.tensor([0.3, 2.0])
     assert R.preprocess(R.RestrictType.FP, 0.3) == 0.3
     assert R.forward(R.RestrictType.FP, v) is v
-    with pytest.raises(NotImplementedError):
-        R.forward(R.RestrictType.INT, v)
+    assert R.preprocess(R.RestrictType.INT, 0.3) == 0.3
+    assert R.forward(R.RestrictType.INT, torch.tensor([0.3, 2.5, -1.6])).tolist() == [0.0, 2.0,
+                                                                                      -2.0]
 
 
 def test_cnv_input_quantizer_scale_is_two_to_minus_seven(jax_ref):

@@ -501,9 +501,21 @@ def test_bnn_pynq_main_trains_on_the_cpu(capsys):
     ["--network", "LFC_1W1A"], ["--network", "LFC_2W2A"], ["--network", "CNV_1W1A"],
     ["--dataset", "digits"], ["--network", "CNV_2W2A"], ["--cfg", "lfc_1w1a"], ["--scan"],
     ["--native-loader"], ["--resume", "best.pkl"]], ids=lambda a: "_".join(a).strip("-"))
-def test_bnn_pynq_refuses_what_is_not_ported(argv):
-    with pytest.raises(NotImplementedError):
-        bnn_pynq.main(["--device", "cpu", "--epochs", "0"] + argv)
+def test_bnn_pynq_refuses_what_is_not_ported(argv, tmp_path, monkeypatch):
+    """``--dataset digits``, ``--scan`` and ``--native-loader`` still raise;
+    the 1- and 2-bit networks, ``--cfg`` and ``--resume`` (here from a
+    checkpoint of the default network) are ported and run."""
+    monkeypatch.chdir(tmp_path)
+    left_out = argv[0] in ("--dataset", "--scan", "--native-loader")
+    if argv[0] == "--resume":
+        m = bnn_pynq.lfc(device="cpu")
+        bnn_pynq.save_checkpoint(argv[1], m, torch.optim.Adam(m.parameters()), 0, 0.5)
+    run = lambda: bnn_pynq.main(["--device", "cpu", "--epochs", "0"] + argv)  # noqa: E731
+    if left_out:
+        with pytest.raises(NotImplementedError):
+            run()
+    else:
+        assert run() == (0.5 if argv[0] == "--resume" else 0.0)
 
 
 def test_parse_network_reads_the_bit_widths():
