@@ -37,10 +37,31 @@
 // What bounds it on the H100: bytes. The forward reads x and writes y (8
 // bytes an element), the backward reads x and g and writes dx (12 bytes an
 // element): at LFC's largest step shape, (1024, 1024), 8.4 and 12.6 MB, 2.5
-// and 3.8 us at 3.35 TB/s. The arithmetic is a division, a rounding and a
-// few adds and products an element, far below the float32 rate. The simple
-// design: kPerThread elements a thread at a stride of a block's width, so a
-// warp's loads are coalesced; any n.
+// and 3.8 us at 3.35 TB/s; at CNV's largest, (256, 64, 30, 30), 118 MB
+// forward, 35 us. The arithmetic is a division, a rounding and a few adds
+// and products an element, far below the float32 rate.
+//
+// The forward streams 16-byte vectors: a thread loads one float4 of x, a
+// block of 256 threads a tile of 1,024 elements, as many blocks as tiles,
+// and each thread reads s and zp itself (a cached load issued beside x's).
+// Its first design, 4 scalars a thread quantized and stored one after the
+// other in the source, ran 1.4 % behind torch's fake-quant op over a CNV
+// step on the H100; the same layout with its 4 loads issued first was 12 %
+// faster, float4 a further 2-5 %, within 6 % of a copy of x to y over the
+// CNV and MobileNet steps (kernel_probes.py fake_quant). 2 or 4 vectors a
+// thread, a grid of one wave with a grid-stride loop, s and zp read once a
+// block through shared memory, 128 or 512 threads, cache hints, and x * (1/s)
+// in place of the division (another function) each gained under 1 % at
+// some step and lost at others, so the division stays __fdiv_rn.
+// The float4 body needs x and y on 16-byte boundaries: y is fresh, and
+// where x is a view that starts off one the wrapper (kernels/fake_quant.py,
+// fake_quant_plan) gives the body no vectors and the whole tensor takes the
+// scalar loop of the same launch, 4 elements a thread, as do the last n % 4
+// elements otherwise.
+//
+// The backward keeps its first design: kPerThread elements a thread at a
+// stride of a block's width, so a warp's loads are coalesced; any n. Its
+// block count fixes the order of the float64 sums.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -82,20 +103,56 @@ __device__ __forceinline__ Code quantize(float x, const Quant& p) {
   return c;
 }
 
-__global__ void __launch_bounds__(kThreads)
-fake_quant_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t n,
+__device__ __forceinline__ float fake_quant_one(float x, const Quant& p) {
+  return __fmul_rn(__fsub_rn(quantize(x, p).qc, p.zp), p.s);
+}
+
+__device__ __forceinline__ float4 fake_quant_one(float4 v, const Quant& p) {
+  return make_float4(fake_quant_one(v.x, p), fake_quant_one(v.y, p), fake_quant_one(v.z, p),
+                     fake_quant_one(v.w, p));
+}
+
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float4 load(const float4* p) { return __ldg(p); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(float4* p, float4 v) { *p = v; }
+
+constexpr int kFwdThreads = 256;
+constexpr int kFwdVecs = 1;  // 16-byte loads a thread issues before it computes
+
+// count items (float4 or float) of x to y in tiles of kFwdThreads * K items,
+// a block a tile (the loop takes any grid): each thread K of a tile at a
+// stride of the block, every load issued before the first store.
+template <int K, typename T>
+__device__ __forceinline__ void fake_quant_stream(const T* __restrict__ x, T* __restrict__ y,
+                                                  int64_t count, const Quant& p) {
+  constexpr int64_t kTile = static_cast<int64_t>(kFwdThreads) * K;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * kTile; t < count;
+       t += static_cast<int64_t>(gridDim.x) * kTile) {
+    T v[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int64_t i = t + k * kFwdThreads + threadIdx.x;
+      if (i < count) v[k] = load(x + i);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int64_t i = t + k * kFwdThreads + threadIdx.x;
+      if (i < count) store(y + i, fake_quant_one(v[k], p));
+    }
+  }
+}
+
+// vecs float4 (x and y 16-byte aligned), then the elements [4 vecs, n) one
+// at a time.
+__global__ void __launch_bounds__(kFwdThreads)
+fake_quant_kernel(const float* __restrict__ x, float* __restrict__ y, int64_t n, int64_t vecs,
                   const float* s_ptr, float s_val, const float* z_ptr, float z_val, float lo,
                   float hi) {
   const Quant p = load_quant(s_ptr, s_val, z_ptr, z_val, lo, hi);
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kPerBlock + threadIdx.x;
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int64_t i = base + static_cast<int64_t>(k) * kThreads;
-    if (i < n) {
-      const Code c = quantize(x[i], p);
-      y[i] = __fmul_rn(__fsub_rn(c.qc, p.zp), p.s);
-    }
-  }
+  fake_quant_stream<kFwdVecs>(reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y),
+                              vecs, p);
+  fake_quant_stream<4 * kFwdVecs>(x + 4 * vecs, y + 4 * vecs, n - 4 * vecs, p);
 }
 
 // Backward, first pass: dx, and (when part is given) this block's float64
@@ -170,16 +227,24 @@ fake_quant_reduce_kernel(const double* __restrict__ part, int64_t blocks,
 
 int64_t blocks_for(int64_t n) { return (n + kPerBlock - 1) / kPerBlock; }
 
+int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
 }  // namespace
 
 extern "C" int64_t fake_quant_blocks(int64_t n) { return blocks_for(n); }
 
-extern "C" int fake_quant_launch(const float* x, float* y, int64_t n, const float* s_ptr,
-                                 float s_val, const float* z_ptr, float z_val, float lo,
-                                 float hi, cudaStream_t stream) {
+// vecs from fake_quant_plan: the float4 of the body, 0 where x or y is off a
+// 16-byte boundary. A block a tile.
+extern "C" int fake_quant_launch(const float* x, float* y, int64_t n, int64_t vecs,
+                                 const float* s_ptr, float s_val, const float* z_ptr,
+                                 float z_val, float lo, float hi, cudaStream_t stream) {
   if (n <= 0) return 0;
-  fake_quant_kernel<<<static_cast<unsigned>(blocks_for(n)), kThreads, 0, stream>>>(
-      x, y, n, s_ptr, s_val, z_ptr, z_val, lo, hi);
+  if (vecs < 0 || 4 * vecs > n) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t scalars = ceil_div(n - 4 * vecs, 4);
+  const int64_t items = vecs > scalars ? vecs : scalars;
+  const int64_t blocks = ceil_div(items, kFwdThreads * kFwdVecs);
+  fake_quant_kernel<<<static_cast<unsigned>(blocks), kFwdThreads, 0, stream>>>(
+      x, y, n, vecs, s_ptr, s_val, z_ptr, z_val, lo, hi);
   return static_cast<int>(cudaGetLastError());
 }
 

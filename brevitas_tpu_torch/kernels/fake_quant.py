@@ -82,11 +82,16 @@ def fake_quant_scale_terms(x, scale, zero_point, g, lo: float, hi: float,
 
 @functools.lru_cache(maxsize=None)
 def _library():
-    lib = build.load("fake_quant")
+    return bind_library(build.load("fake_quant"))
+
+
+def bind_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``'s launchers with their argument types set (a library built
+    from ``csrc/fake_quant.cu``, or a variant of it)."""
     ptr, f32, i64 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int64
     lib.fake_quant_blocks.argtypes = [i64]
     lib.fake_quant_blocks.restype = i64
-    lib.fake_quant_launch.argtypes = [ptr, ptr, i64, ptr, f32, ptr, f32, f32, f32, ptr]
+    lib.fake_quant_launch.argtypes = [ptr, ptr, i64, i64, ptr, f32, ptr, f32, f32, f32, ptr]
     lib.fake_quant_launch.restype = ctypes.c_int
     lib.fake_quant_backward_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr, f32,
                                                ptr, f32, f32, f32, ctypes.c_int, ptr]
@@ -120,14 +125,25 @@ def _bounds(lo: float, hi: float) -> Tuple[float, float]:
     return lo, hi
 
 
+def fake_quant_plan(x_ptr: int, y_ptr: int, n: int) -> int:
+    """The 16-byte vectors the forward kernel takes of ``n`` float32
+    elements from ``x_ptr`` to ``y_ptr`` (its fast path); it takes the
+    rest, the last ``n % 4`` or, where either address is off a 16-byte
+    boundary (``x`` a view that starts inside an allocation), all of them,
+    one at a time."""
+    return n // 4 if x_ptr % 16 == 0 and y_ptr % 16 == 0 else 0
+
+
 def _forward_kernel(x, scale, zero_point, lo, hi):
     device = x.device
     x = _operand("x", x, device)
     s_ptr, s_val = _scalar_arg("scale", scale, device)
     z_ptr, z_val = _scalar_arg("zero_point", zero_point, device)
     y = torch.empty_like(x)
+    n = x.numel()
     _launch.launch(_library().fake_quant_launch, "fake_quant", device, x.data_ptr(),
-                   y.data_ptr(), x.numel(), s_ptr, s_val, z_ptr, z_val, *_bounds(lo, hi))
+                   y.data_ptr(), n, fake_quant_plan(x.data_ptr(), y.data_ptr(), n), s_ptr,
+                   s_val, z_ptr, z_val, *_bounds(lo, hi))
     fake_quant.launches += 1
     return y
 

@@ -89,16 +89,32 @@ Phases; any failure exits non-zero and prints no result:
 11b. fake_quant_kernels - fake_quant's forward and backward kernels at the
              shapes of an lfc_qat step ((1024, 784), (1024, 1024), (10, 1024)),
              of a cnv_qat step (its nine activation quantizers' inputs, CNV's
-             largest (256, 64, 30, 30) among them) and an unaligned (3, 5,
-             7), zero points 0 and 3, both clamp modes, every clamp reached: forward and dx bit for bit against
-             the plain versions on the card; dscale and dzp within 1e-5 *
-             sum |term| of the float64 sum of the plain terms; the same bits
-             on a second run. Times as above; the library point is torch's
-             own fake-quant ops, which multiply by 1/s (the Pallas kernel's
-             function, not the port's).
-11c. fake_quant_cnv_spread - fake_quant's forward over one cnv_qat step
-             against torch.fake_quantize_per_tensor_affine, 7 times each,
-             alternating: both medians and their spreads.
+             largest (256, 64, 30, 30) among them), of a mobilenet_qat step
+             (MOBILENET_FQ_STEP_SHAPES: its 17 per-tensor quantizers' inputs,
+             which the mobilenet_qat phase holds to its own calls) and an
+             unaligned (3, 5, 7), zero points 0 and 3, both clamp modes, every
+             clamp reached: forward and dx bit for bit against the plain
+             versions on the card; dscale and dzp within 1e-5 * sum |term| of
+             the float64 sum of the plain terms; the same bits on a second run.
+             Then views of CNV's largest input flattened (FQ_VIEWS: x 4 and 8
+             bytes off a 16-byte boundary, which take the scalar loop, 16
+             bytes in, and lengths not a multiple of 4), forward and dx bit
+             for bit, each printing the path it took. Times as above; the
+             library point is torch's own fake-quant ops, which multiply by
+             1/s (the Pallas kernel's function, not the port's).
+11c. fake_quant_exhaustive - the forward kernel against fake_quant_reference
+             on the card over every float32 bit pattern (2^32, in chunks of
+             2^28 made on the card), at 18 scales (1/7 divided on the card,
+             1, 2^-10, MobileNet's LOG_FP start, significands at their edges,
+             FLT_MIN, 2e-16, 1e30 and 8 drawn from a seed in [1e-4, 1e2]) and
+             5 grids (zero points 0 and 3 on (-7, 7) and (0, 255); zero point
+             0 on (-2^30, 2^30), where the quotient's own bits reach y): the
+             same bits everywhere, a NaN only as a NaN; prints the elements
+             compared (386,547,056,640) and those that differ (raises on any).
+11d. fake_quant_spread - fake_quant's forward over one lfc_qat, cnv_qat and
+             mobilenet_qat step against torch.fake_quantize_per_tensor_affine,
+             7 times each, alternating: each step's medians, their spreads
+             and their ratio.
 12. lstm_qat - bench.py's quantlstm_int8_qat leg at full width: QuantLSTM(128,
              512, num_layers=2) with the leg's quantizers and a Linear(512, 10)
              head on y[:, -1]; one calibration forward (the module cell: no
@@ -251,6 +267,7 @@ def peaks_for(name: str):
 
 
 SLEEP_CYCLES = 20_000_000  # about 10 ms of GPU clock: covers enqueueing `inner` calls
+SLEEP_MS = 10.0
 
 
 def cuda_ms(fn, reps: int = 25, inner: int = 10, device_only: bool = True) -> float:
@@ -260,16 +277,25 @@ def cuda_ms(fn, reps: int = 25, inner: int = 10, device_only: bool = True) -> fl
 
     ``device_only``: the card first sleeps while the host enqueues the
     window, so the events time the device work alone, not the host's launch
-    overhead. Without it the time per call includes that overhead."""
+    overhead; the sleep grows in steps of SLEEP_CYCLES to twice the time the
+    warm-up took to enqueue a window. Without it the time per call includes
+    that overhead."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    sleep = 1
+    if device_only:
+        t0 = time.perf_counter()
+        for _ in range(inner):
+            fn()
+        sleep = max(1, -(-2 * (time.perf_counter() - t0) * 1e3 // SLEEP_MS))
+        torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if device_only:
-            torch.cuda._sleep(SLEEP_CYCLES)
+            torch.cuda._sleep(int(sleep) * SLEEP_CYCLES)
         t0 = time.perf_counter()
         start.record()
         for _ in range(inner):
@@ -278,7 +304,7 @@ def cuda_ms(fn, reps: int = 25, inner: int = 10, device_only: bool = True) -> fl
         enqueue_ms = (time.perf_counter() - t0) * 1e3
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
-        if device_only and enqueue_ms > 8.0:
+        if device_only and enqueue_ms > 0.8 * sleep * SLEEP_MS:
             print(f"[kernels] warning: enqueueing took {enqueue_ms:.2f} ms, near the "
                   "sleep; this device time may include host gaps")
     return statistics.median(times)
@@ -2076,7 +2102,26 @@ CNV_FQ_STEP_SHAPES = [((256, 3, 32, 32), 1, 0), ((256, 64, 30, 30), 1, 1),
                       ((256, 64, 28, 28), 1, 1), ((256, 128, 12, 12), 1, 1),
                       ((256, 128, 10, 10), 1, 1), ((256, 256, 3, 3), 1, 1),
                       ((256, 256, 1, 1), 1, 1), ((256, 512), 2, 2)]
+# fake_quant at the shapes of one mobilenet_qat step (quant_mobilenet_v1(4),
+# batch 32 at 224 px), the same way: the 13 depthwise ReLUs' inputs (the
+# stem's 3 x 3 VALID conv at stride 2 takes 224 px to 111, each later
+# stage's first depthwise conv halves it: 56, 28, 14, 7), the last stage's
+# two pointwise ReLUs, the head's (1000, 1024) weight and its IntBias; the
+# per-channel weights and ReLUs take the plain chain. phase_mobilenet_qat
+# holds these to its warm-up step's calls.
+MOBILENET_FQ_STEP_SHAPES = [((32, 32, 111, 111), 1, 1), ((32, 64, 56, 56), 1, 1),
+                            ((32, 128, 56, 56), 1, 1), ((32, 128, 28, 28), 1, 1),
+                            ((32, 256, 28, 28), 1, 1), ((32, 256, 14, 14), 1, 1),
+                            ((32, 512, 14, 14), 5, 5), ((32, 512, 7, 7), 1, 1),
+                            ((32, 1024, 7, 7), 3, 3), ((1000, 1024), 1, 1), ((1000,), 1, 1)]
+FQ_STEPS = {"lfc_qat": FQ_STEP_SHAPES, "cnv_qat": CNV_FQ_STEP_SHAPES,
+            "mobilenet_qat": MOBILENET_FQ_STEP_SHAPES}
 FQ_EDGE_SHAPE = (3, 5, 7)
+# views of CNV's largest step input, flattened: x starting 4, 8 and 16 bytes
+# past the allocation (the first two off a 16-byte boundary: the scalar
+# loop), and lengths that are not a multiple of 4 (a scalar tail)
+FQ_VIEWS = [("offset 1", 1, None), ("offset 2, ragged", 2, -3), ("offset 4", 4, None),
+            ("ragged length", 0, -1)]
 # (zero point, lo, hi, ste_clamp): LFC's narrow 4-bit grid, and zero point 3
 FQ_CASES = [(0.0, -7.0, 7.0, False), (0.0, -7.0, 7.0, True), (3.0, -8.0, 7.0, False),
             (3.0, -8.0, 7.0, True)]
@@ -2104,19 +2149,21 @@ def profiled_device_ms(fn, n: int = 20) -> float:
 
 def phase_fake_quant_kernels(dev, bw) -> list:
     """fake_quant's forward and backward kernels against their plain
-    versions on the card at LFC's and CNV's step shapes and an unaligned
-    one, every case reaching both clamps: the forward and dx bit for bit,
-    dscale and dzp within FQ_SUM_RTOL * sum |term| of the float64 sum of the
-    plain terms, the same bits on a second run. Timed at the step shapes in
-    the path's case (zero point 0, the zeroing clamp, no scale gradient).
-    Returns one row per (kernel, shape)."""
+    versions on the card at LFC's, CNV's and MobileNet's step shapes and an
+    unaligned one, every case reaching both clamps: the forward and dx bit
+    for bit, dscale and dzp within FQ_SUM_RTOL * sum |term| of the float64
+    sum of the plain terms, the same bits on a second run; then the forward
+    and dx at the views of FQ_VIEWS. Timed at the step shapes in the path's
+    case (zero point 0, the zeroing clamp, no scale gradient), and the
+    forward at the first view (the scalar loop). Returns one row per
+    (kernel, shape)."""
     from brevitas_tpu_torch.kernels import (
         fake_quant,
         fake_quant_backward,
         fake_quant_backward_reference,
         fake_quant_reference,
     )
-    from brevitas_tpu_torch.kernels.fake_quant import fake_quant_scale_terms
+    from brevitas_tpu_torch.kernels.fake_quant import fake_quant_plan, fake_quant_scale_terms
 
     g = torch.Generator(device=dev).manual_seed(5)
     # a 4-bit LFC grid's scale, divided on the card as rescaling_scale does
@@ -2125,7 +2172,8 @@ def phase_fake_quant_kernels(dev, bw) -> list:
     print("[fake_quant_kernels] kernel shape | kernel_ms plain_ms library_ms bound_ms "
           "bound_by (library: torch's fake-quant ops multiply by 1/s: the Pallas kernel's "
           "function, not the port's)")
-    for shape in [sh for sh, _, _ in FQ_STEP_SHAPES + CNV_FQ_STEP_SHAPES] + [FQ_EDGE_SHAPE]:
+    shapes = [sh for step in FQ_STEPS.values() for sh, _, _ in step] + [FQ_EDGE_SHAPE]
+    for shape in shapes:
         x = torch.randn(shape, generator=g, device=dev)
         gy = torch.randn(shape, generator=g, device=dev)
         for zp_v, lo, hi, ste in FQ_CASES:
@@ -2194,44 +2242,176 @@ def phase_fake_quant_kernels(dev, bw) -> list:
             print(f"[fake_quant_kernels] {name} {shape} | {t_k:.4f} {t_p:.4f} {t_l:.4f} "
                   f"{t_b:.3g} bytes" + (f" | with dscale/dzp sums {t_bks:.4f}"
                                         if name == "fake_quant_backward" else ""))
+
+    # views: the float4 body where x starts on a 16-byte boundary, the
+    # scalar loop where it does not, scalar tails
+    flat = torch.randn(CNV_FQ_STEP_SHAPES[1][0], generator=g, device=dev).flatten()
+    g_flat = torch.randn(flat.shape, generator=g, device=dev)
+    for what, start, stop in FQ_VIEWS:
+        x, gy = flat[start:stop], g_flat[start:stop]
+        vecs = fake_quant_plan(x.data_ptr(), torch.empty_like(x).data_ptr(), x.numel())
+        for zp_v, lo, hi, ste in FQ_CASES:
+            zp = torch.full((), zp_v, device=dev)
+            with torch.no_grad():
+                y_k = fake_quant(x, scale, zp, lo, hi, ste)
+                y_r = fake_quant_reference(x, scale, zp, lo, hi, ste)
+            dx_k = fake_quant_backward(x, scale, zp, gy, lo, hi, ste, sums=False)[0]
+            dx_r = fake_quant_backward_reference(x, scale, zp, gy, lo, hi, ste)[0]
+            if not (torch.equal(y_k, y_r) and torch.equal(dx_k, dx_r)):
+                raise AssertionError(f"fake_quant at the view {what} (n {x.numel()}), zp "
+                                     f"{zp_v} lo {lo} hi {hi} ste_clamp {ste}: forward "
+                                     f"{int((y_k != y_r).sum())} and dx "
+                                     f"{int((dx_k != dx_r).sum())} elements differ")
+        path = "scalar loop" if vecs == 0 else "float4 body"
+        print(f"[fake_quant_kernels] view {what}: n {x.numel()}, x {x.data_ptr() % 16} bytes "
+              f"past a 16-byte boundary; the {path} ({vecs} float4, "
+              f"{x.numel() - 4 * vecs} one at a time); 4 cases, forward and dx bit for bit")
+        if what == FQ_VIEWS[0][0]:
+            with torch.no_grad():
+                t_k = cuda_ms(lambda: fake_quant(x, scale, 0.0, -7.0, 7.0))
+            t_b = FQ_BYTES[0] * x.numel() / bw * 1e3
+            rows.append(dict(kernel="fake_quant", shape=[x.numel()], view=what, ms=t_k,
+                             bound_ms=t_b, bound_by="bytes"))
+            print(f"[fake_quant_kernels] fake_quant at the view {what}, the scalar loop: "
+                  f"{t_k:.4f} ms, bound {t_b:.3g} ms")
     return rows
 
 
-FQ_SPREAD_REPS = 7  # alternating kernel / library measurements of the CNV step's forward
+# every float32 bit pattern, in chunks of this many (1 GiB each)
+FQ_EXHAUSTIVE_CHUNK = 1 << 28
+# (zero point, lo, hi): zero points 0 (passed as a number) and 3 (a tensor)
+# on narrow grids, and bounds so wide that the quotient's own bits reach y
+# wherever |x / s| >= 2^23
+FQ_EXHAUSTIVE_GRIDS = [(0.0, -7.0, 7.0), (0.0, 0.0, 255.0), (3.0, -7.0, 7.0),
+                       (3.0, 0.0, 255.0), (0.0, -2.0 ** 30, 2.0 ** 30)]
+FQ_EXHAUSTIVE_SEEDED = 8  # scales drawn log-uniformly from [1e-4, 1e2], numpy seed 14
+
+
+def fq_exhaustive_scales(dev) -> list:
+    """(name, one-element float32 scale on the card) for the exhaustive
+    phase."""
+    from brevitas_tpu_torch.models.mobilenetv1 import common_uint_act_quant
+    from brevitas_tpu_torch.quant.quantizers import ActQuantizer
+
+    def bits(b):
+        return torch.tensor(b, dtype=torch.int32).view(torch.float32).to(dev)
+
+    one = torch.ones((), device=dev)
+    log_fp = ActQuantizer(common_uint_act_quant(4)).to(dev).static_int_params()[0]
+    scales = [("1/7 divided on the card", one / torch.full((), 7.0, device=dev)),
+              ("1.0", one), ("2^-10", torch.full((), 2.0 ** -10, device=dev)),
+              ("MobileNet's LOG_FP start, 2^log2(6) / 15", log_fp.detach().reshape(())),
+              ("0x3F800001", bits(0x3F800001)), ("0x3F7FFFFF", bits(0x3F7FFFFF)),
+              ("0x3FFFFFFF", bits(0x3FFFFFFF)), ("FLT_MIN", bits(0x00800000)),
+              ("2e-16 (scaling_min_val)", torch.full((), 2e-16, device=dev)),
+              ("1e30", torch.full((), 1e30, device=dev))]
+    rng = np.random.default_rng(14)
+    drawn = np.exp(rng.uniform(np.log(1e-4), np.log(1e2), FQ_EXHAUSTIVE_SEEDED))
+    scales += [(f"seeded {float(v):.9g}", torch.tensor(v, device=dev))
+               for v in drawn.astype(np.float32)]
+    return scales
+
+
+def phase_fake_quant_exhaustive(dev) -> dict:
+    """fake_quant's forward against fake_quant_reference on the card over
+    every float32 bit pattern (2^32, in chunks made on the card), at every
+    scale of fq_exhaustive_scales and every grid of FQ_EXHAUSTIVE_GRIDS: the
+    same bits everywhere, a NaN compared only as a NaN. Raises on any
+    difference."""
+    from brevitas_tpu_torch.kernels import fake_quant, fake_quant_reference
+
+    t0 = time.perf_counter()
+    scales = fq_exhaustive_scales(dev)
+    grids = [(torch.full((), zp, device=dev) if zp else zp, lo, hi)
+             for zp, lo, hi in FQ_EXHAUSTIVE_GRIDS]
+    compared, faults = 0, []
+    with torch.no_grad():
+        for start in range(0, 1 << 32, FQ_EXHAUSTIVE_CHUNK):
+            signed = start - (1 << 32) if start >= 1 << 31 else start
+            x = torch.arange(signed, signed + FQ_EXHAUSTIVE_CHUNK, dtype=torch.int64,
+                             device=dev).to(torch.int32).view(torch.float32)
+            for name, s in scales:
+                for zp, lo, hi in grids:
+                    y_k = fake_quant(x, s, zp, lo, hi)
+                    y_r = fake_quant_reference(x, s, zp, lo, hi)
+                    bits_k, bits_r = y_k.view(torch.int32), y_r.view(torch.int32)
+                    compared += x.numel()
+                    if torch.equal(bits_k, bits_r):
+                        continue
+                    differ = (bits_k != bits_r) & ~(torch.isnan(y_k) & torch.isnan(y_r))
+                    n_diff = int(differ.sum())
+                    if n_diff:
+                        i = int(differ.nonzero()[0])
+                        faults.append(dict(scale=name, zero_point=float(zp), lo=lo, hi=hi,
+                                           differ=n_diff, x_bits=hex(start + i),
+                                           kernel=float(y_k[i]), plain=float(y_r[i])))
+                    del differ
+            del x, y_k, y_r, bits_k, bits_r
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = {"scales": [name for name, _ in scales],
+           "scale_values": [float(s) for _, s in scales], "grids": FQ_EXHAUSTIVE_GRIDS,
+           "compared": compared, "differing": sum(f["differ"] for f in faults),
+           "faults": faults[:20], "seconds": seconds}
+    print(f"[fake_quant_exhaustive] every float32 bit pattern through the kernel and "
+          f"fake_quant_reference on the card, {len(scales)} scales x {len(grids)} grids: "
+          f"{compared} elements compared, {out['differing']} differ, in {seconds:.1f} s")
+    if faults:
+        raise AssertionError(f"fake_quant differs from its plain version: {faults[:5]}")
+    return out
+
+
+FQ_SPREAD_REPS = 7  # alternating kernel / library measurements of each step's forward
 FQ_SPREAD_WINDOWS = 9  # cuda_ms windows of each measurement (its median)
 
 
-def phase_fake_quant_cnv_spread(dev) -> dict:
-    """fake_quant's forward over one cnv_qat step (CNV_FQ_STEP_SHAPES, in the
-    path's case) against torch.fake_quantize_per_tensor_affine on the same
-    inputs, FQ_SPREAD_REPS times each, alternating: the medians of the two
-    step sums and the spread (max - min) of each, so that a difference can
-    be told from the drift between runs."""
+def phase_fake_quant_spread(dev) -> dict:
+    """fake_quant's forward over one lfc_qat, cnv_qat and mobilenet_qat step
+    (FQ_STEPS, in the path's case) against
+    torch.fake_quantize_per_tensor_affine on the same inputs, FQ_SPREAD_REPS
+    times each, alternating: for each step the medians of the two step sums
+    and the spread (max - min) of each, so that a difference can be told
+    from the drift between runs."""
     from brevitas_tpu_torch.kernels import fake_quant
 
     g = torch.Generator(device=dev).manual_seed(6)
     scale = torch.ones((), device=dev) / torch.full((), 7.0, device=dev)
     s_host = float(scale)
-    xs = [(torch.randn(sh, generator=g, device=dev), n) for sh, n, _ in CNV_FQ_STEP_SHAPES]
-    kern, lib = [], []
+    inputs = {step: [(torch.randn(sh, generator=g, device=dev), n) for sh, n, _ in shapes]
+              for step, shapes in FQ_STEPS.items()}
+    kern = {step: [] for step in inputs}
+    lib = {step: [] for step in inputs}
     with torch.no_grad():
         for _ in range(FQ_SPREAD_REPS):
-            kern.append(sum(n * cuda_ms(lambda x=x: fake_quant(x, scale, 0.0, -7.0, 7.0),
-                                        reps=FQ_SPREAD_WINDOWS) for x, n in xs))
-            lib.append(sum(n * cuda_ms(lambda x=x: torch.fake_quantize_per_tensor_affine(
-                x, s_host, 0, -7, 7), reps=FQ_SPREAD_WINDOWS) for x, n in xs))
-    out = {"reps": FQ_SPREAD_REPS, "kernel_ms": kern, "library_ms": lib,
-           "kernel_median": statistics.median(kern), "library_median": statistics.median(lib),
-           "kernel_spread": max(kern) - min(kern), "library_spread": max(lib) - min(lib)}
-    out["median_gap"] = out["kernel_median"] - out["library_median"]
-    out["kernel_loses_beyond_spread"] = out["median_gap"] > max(out["kernel_spread"],
-                                                                out["library_spread"])
-    print(f"[fake_quant_cnv_spread] one cnv_qat step's forward ({sum(n for _, n in xs)} "
-          f"launches), {FQ_SPREAD_REPS} alternating runs on {CARD[0]}: kernel median "
-          f"{out['kernel_median']:.5f} ms (spread {out['kernel_spread']:.5f}), "
-          f"torch.fake_quantize_per_tensor_affine median {out['library_median']:.5f} ms "
-          f"(spread {out['library_spread']:.5f}); gap {out['median_gap']:.5f} ms, beyond the "
-          f"spread: {out['kernel_loses_beyond_spread']}")
+            for step, xs in inputs.items():
+                kern[step].append(sum(
+                    n * cuda_ms(lambda x=x: fake_quant(x, scale, 0.0, -7.0, 7.0),
+                                reps=FQ_SPREAD_WINDOWS) for x, n in xs))
+                lib[step].append(sum(
+                    n * cuda_ms(lambda x=x: torch.fake_quantize_per_tensor_affine(
+                        x, s_host, 0, -7, 7), reps=FQ_SPREAD_WINDOWS) for x, n in xs))
+    out = {}
+    for step, xs in inputs.items():
+        o = {"reps": FQ_SPREAD_REPS, "launches": sum(n for _, n in xs),
+             "kernel_ms": kern[step], "library_ms": lib[step],
+             "kernel_median": statistics.median(kern[step]),
+             "library_median": statistics.median(lib[step]),
+             "kernel_spread": max(kern[step]) - min(kern[step]),
+             "library_spread": max(lib[step]) - min(lib[step])}
+        o["median_gap"] = o["kernel_median"] - o["library_median"]
+        o["ratio"] = o["kernel_median"] / o["library_median"]
+        beyond = max(o["kernel_spread"], o["library_spread"])
+        o["kernel_ahead_beyond_spread"] = -o["median_gap"] > beyond
+        o["kernel_behind_beyond_spread"] = o["median_gap"] > beyond
+        out[step] = o
+        print(f"[fake_quant_spread] one {step} step's forward ({o['launches']} launches), "
+              f"{FQ_SPREAD_REPS} alternating runs on {CARD[0]}: kernel median "
+              f"{o['kernel_median']:.5f} ms (spread {o['kernel_spread']:.5f}), "
+              f"torch.fake_quantize_per_tensor_affine median {o['library_median']:.5f} ms "
+              f"(spread {o['library_spread']:.5f}); kernel / library {o['ratio']:.4f}, gap "
+              f"{o['median_gap']:.5f} ms; ahead beyond both spreads "
+              f"{o['kernel_ahead_beyond_spread']}, behind beyond them "
+              f"{o['kernel_behind_beyond_spread']}")
     return out
 
 
@@ -2239,7 +2419,7 @@ def fake_quant_step_sums(rows, name, step_shapes) -> dict:
     """A fake_quant kernel's times over one training step: its launches at
     the step's shapes."""
     idx = 1 if name == "fake_quant" else 2
-    per_shape = {tuple(r["shape"]): r for r in rows if r["kernel"] == name}
+    per_shape = {tuple(r["shape"]): r for r in rows if r["kernel"] == name and "view" not in r}
     keys = ("ms", "plain_ms", "library_ms", "bound_ms") + (
         ("ms_with_sums",) if name == "fake_quant_backward" else ())
     sums = {key: sum(per_shape[sh][key] * sh_n[idx - 1] for sh, *sh_n in step_shapes)
@@ -2250,7 +2430,7 @@ def fake_quant_step_sums(rows, name, step_shapes) -> dict:
 
 def fake_quant_summary(rows, name, launches) -> dict:
     """A fake_quant kernel's row: its times over one lfc_qat step, and over
-    one cnv_qat step beside them."""
+    one cnv_qat and one mobilenet_qat step beside them."""
     sums = fake_quant_step_sums(rows, name, FQ_STEP_SHAPES)
     per_step = sums.pop("launches_per_step")
     entry = {
@@ -2259,10 +2439,11 @@ def fake_quant_summary(rows, name, launches) -> dict:
         "max_abs_err": 0.0, **sums, "bound_by": "bytes",
         "per": f"one lfc_qat step at batch {LFC_QAT_BATCH}: {per_step} launches",
         "cnv_qat_step": fake_quant_step_sums(rows, name, CNV_FQ_STEP_SHAPES),
+        "mobilenet_qat_step": fake_quant_step_sums(rows, name, MOBILENET_FQ_STEP_SHAPES),
         "library_note": "torch.fake_quantize_per_tensor_affine (forward) and the backward of "
                         "torch._fake_quantize_learnable_per_tensor_affine multiply by 1/s: they "
                         "compute the Pallas kernel's function, not the port's",
-        "scale_sum_ratio": max(r["scale_sum_ratio"] for r in rows),
+        "scale_sum_ratio": max(r["scale_sum_ratio"] for r in rows if "view" not in r),
     }
     return entry
 
@@ -2276,6 +2457,27 @@ def plain_fake_quant():
 
     saved = quantizers.fake_quant
     quantizers.fake_quant = fake_quant_reference
+    try:
+        yield
+    finally:
+        quantizers.fake_quant = saved
+
+
+@contextlib.contextmanager
+def recorded_fake_quant_calls(store: list):
+    """Append (shape, whether a backward follows) of each call of the
+    quantizers' per-tensor fake-quant to ``store``."""
+    from brevitas_tpu_torch.quant import quantizers
+
+    saved = quantizers.fake_quant
+
+    def recording(x, scale, zero_point, *args, **kw):
+        grad = torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in (x, scale, zero_point))
+        store.append((tuple(x.shape), grad))
+        return saved(x, scale, zero_point, *args, **kw)
+
+    quantizers.fake_quant = recording
     try:
         yield
     finally:
@@ -3317,12 +3519,19 @@ def phase_mobilenet_qat(dev, bf16: bool) -> dict:
     opt = torch.optim.Adam(model.parameters(), lr=MN_LR)
     plain_opt = torch.optim.Adam(plain.parameters(), lr=MN_LR)
 
-    card_codes = []
+    card_codes, fq_calls = [], []
     _reset_launch_counts()
-    with recorded_act_codes(model, card_codes, act_layers(model)):
+    with recorded_act_codes(model, card_codes, act_layers(model)), \
+            recorded_fake_quant_calls(fq_calls):
         loss0 = mobilenet_step(model, opt, xs[0], ys[0])
     torch.cuda.synchronize()
     warm_counts = _launch_counts()
+    # the shapes fake_quant_kernels and fake_quant_spread time as this step's
+    want_calls = sorted((sh, bwd == fwd) for sh, fwd, bwd in MOBILENET_FQ_STEP_SHAPES
+                        for _ in range(fwd))
+    if sorted(fq_calls) != want_calls:
+        raise AssertionError(f"{what}: fake_quant calls (shape, backward) {sorted(fq_calls)}, "
+                             f"MOBILENET_FQ_STEP_SHAPES gives {want_calls}")
     with plain_fake_quant():
         plain0 = mobilenet_step(plain, plain_opt, xs[0], ys[0])
     torch.cuda.synchronize()
@@ -3552,7 +3761,8 @@ def main() -> int:
     attn_rows = timed("attention_kernels", phase_attention_kernels, dev, peaks)
     lstm_rows = timed("lstm_kernels", phase_lstm_kernels, dev, VECTOR_PEAKS[sheet], peaks[0])
     fq_rows = timed("fake_quant_kernels", phase_fake_quant_kernels, dev, peaks[0])
-    fq_spread = timed("fake_quant_cnv_spread", phase_fake_quant_cnv_spread, dev)
+    fq_exhaustive = timed("fake_quant_exhaustive", phase_fake_quant_exhaustive, dev)
+    fq_spread = timed("fake_quant_spread", phase_fake_quant_spread, dev)
     serve_out, serve_int8 = timed("serve", phase_serve, dev)
     lfc_launches = timed("lfc", phase_lfc, dev)
     prefill = timed("llama_prefill", phase_llama_prefill, dev)
@@ -3682,7 +3892,9 @@ def main() -> int:
         "mobilenet_qat": {d: {k: v for k, v in run.items() if k != "profile"}
                           for d, run in mobilenet.items()},
         "phase_seconds": PHASE_SECONDS, "seconds": time.perf_counter() - t0}
-    report["kernels"][-2]["cnv_step_forward_spread"] = fq_spread
+    report["kernels"][-2]["step_forward_spread"] = fq_spread
+    report["kernels"][-2]["exhaustive"] = fq_exhaustive
+    report["kernels"][-2]["views"] = [r for r in fq_rows if "view" in r]
     for entry in report["kernels"]:
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in PATH_COUNTS.items()}

@@ -14,6 +14,10 @@ card.
     python kernel_probes.py lstm        # quant_lstm_cell: the forward (tables, direct
                                         # chain), and the backward at 4- and 8-column CTAs
     python kernel_probes.py attention   # int8_attention: as built, and capped at 5 CTAs an SM
+    python kernel_probes.py fake_quant  # fake_quant's forward: as built and in variants
+                                        # (vectors a thread, grid, block size, s and zp,
+                                        # cache hints, the division) at three QAT steps,
+                                        # beside torch's op and a copy of x to y
 
 Needs a card and nvcc; imports nothing of JAX.
 """
@@ -73,21 +77,35 @@ def stamped(name: str, marks) -> str:
     return src + STAMP_READ
 
 
-def compile_variant(tag: str, src: str, launcher: str, n_ptr: int, n_int: int):
-    """Build ``src`` into a library; returns (library, its launcher bound
-    as the wrapper binds it)."""
+def build_variants(sources: dict) -> dict:
+    """Build each ``{tag: source}`` into a library, all at once, printing
+    ptxas's registers and spills; returns ``{tag: ctypes.CDLL}``."""
     OUT.mkdir(parents=True, exist_ok=True)
     for header in build.HERE.glob("*.cuh"):
         (OUT / header.name).write_text(header.read_text())
-    cu, so = OUT / f"{tag}.cu", OUT / f"lib{tag}.so"
-    cu.write_text(src)
-    r = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
-                       capture_output=True, text=True)
-    for line in (r.stdout + r.stderr).splitlines():
-        if any(w in line for w in ("registers", "spill", "error")):
-            print(f"[{tag}] {line.strip()}")
-    r.check_returncode()
-    lib = ctypes.CDLL(str(so))
+    jobs = {}
+    for tag, src in sources.items():
+        cu, so = OUT / f"{tag}.cu", OUT / f"lib{tag}.so"
+        cu.write_text(src)
+        jobs[tag] = (subprocess.Popen([build.nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True), so)
+    libs = {}
+    for tag, (proc, so) in jobs.items():
+        log, _ = proc.communicate()
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "spill", "error")):
+                print(f"[{tag}] {line.strip()}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the variant {tag}")
+        libs[tag] = ctypes.CDLL(str(so))
+    return libs
+
+
+def compile_variant(tag: str, src: str, launcher: str, n_ptr: int, n_int: int):
+    """Build ``src`` into a library; returns (library, its launcher bound
+    as the wrapper binds it)."""
+    lib = build_variants({tag: src})[tag]
     lib.probe_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn = getattr(lib, launcher)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
@@ -265,18 +283,141 @@ def probe_attention() -> None:
           f"{statistics.median(busy) / 1e3:.1f} max {busy[-1] / 1e3:.1f}")
 
 
+def edited(src: str, edits) -> str:
+    for old, new in edits:
+        if old not in src:
+            raise RuntimeError(f"probe anchor not found: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+_THREAD_SZ = ("  const Quant p = load_quant(s_ptr, s_val, z_ptr, z_val, lo, hi);\n"
+              "  fake_quant_stream<kFwdVecs>")
+_BLOCK_SZ = """  __shared__ float sz[2];
+  if (threadIdx.x == 0) {
+    sz[0] = s_ptr != nullptr ? *s_ptr : s_val;
+    sz[1] = z_ptr != nullptr ? *z_ptr : z_val;
+  }
+  __syncthreads();
+  const Quant p{sz[0], sz[1], lo, hi};
+  fake_quant_stream<kFwdVecs>"""
+_VECS = "constexpr int kFwdVecs = 1;"
+_GRID = "  const int64_t blocks = ceil_div(items, kFwdThreads * kFwdVecs);\n"
+_ONE_WAVE = """  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fake_quant_kernel, kFwdThreads, 0);
+  const int64_t wave = static_cast<int64_t>(sms) * per_sm;
+  int64_t blocks = ceil_div(items, kFwdThreads * kFwdVecs);
+  blocks = blocks < wave ? blocks : wave;
+"""
+_RECIP = [("  float s, zp, lo, hi;\n", "  float s, zp, lo, hi, r;\n"),
+          ("  p.hi = hi;\n  return p;", "  p.hi = hi;\n  p.r = __frcp_rn(p.s);\n  return p;"),
+          ("  c.xs = __fdiv_rn(x, p.s);", "  c.xs = __fmul_rn(x, p.r);")]
+# fake_quant's forward: (tag, what, edits of csrc/fake_quant.cu, the plan
+# forced to the scalar loop)
+FQ_VARIANTS = [
+    ("built", "as built", [], False),
+    ("scalar", "the scalar loop on every tensor (4 elements a thread)", [], True),
+    ("vecs2", "2 vectors a thread", [(_VECS, "constexpr int kFwdVecs = 2;")], False),
+    ("vecs4", "4 vectors a thread", [(_VECS, "constexpr int kFwdVecs = 4;")], False),
+    ("wave", "a grid of one wave, grid-stride", [(_GRID, _ONE_WAVE)], False),
+    ("wave4", "a grid of one wave, 4 vectors a thread",
+     [(_GRID, _ONE_WAVE), (_VECS, "constexpr int kFwdVecs = 4;")], False),
+    ("szblock", "s and zp read once a block (shared memory)", [(_THREAD_SZ, _BLOCK_SZ)], False),
+    ("thr128", "128 threads a block", [("kFwdThreads = 256;", "kFwdThreads = 128;")], False),
+    ("thr512", "512 threads a block", [("kFwdThreads = 256;", "kFwdThreads = 512;")], False),
+    ("ldcs", "x loaded evict-first (__ldcs)",
+     [("float4 load(const float4* p) { return __ldg(p); }",
+       "float4 load(const float4* p) { return __ldcs(p); }")], False),
+    ("stcg", "y stored past L1 (__stcg)",
+     [("void store(float4* p, float4 v) { *p = v; }",
+       "void store(float4* p, float4 v) { __stcg(p, v); }")], False),
+    ("recip", "x * (1/s), not the port's function: the most a division rewrite could save",
+     _RECIP, False),
+]
+
+
+def probe_fake_quant() -> None:
+    """fake_quant's forward, as built and in the variants of FQ_VARIANTS,
+    each over one lfc_qat, cnv_qat and mobilenet_qat step (chip_smoke's
+    FQ_STEPS, the path's case), beside torch.fake_quantize_per_tensor_affine
+    and a copy of x to y (``y.copy_(x)``: the same bytes, no arithmetic), in
+    turns: the variants in order, then in reverse. Each variant's forward is
+    first held to the plain version at CNV's largest shape."""
+    fq = importlib.import_module("brevitas_tpu_torch.kernels.fake_quant")
+
+    src = (build.HERE / "fake_quant.cu").read_text()
+    libs = build_variants({f"fq_{tag}": edited(src, edits) for tag, _, edits, _ in FQ_VARIANTS})
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    scale = torch.ones((), device=dev) / torch.full((), 7.0, device=dev)
+    s_host = float(scale)
+    inputs = {step: [(torch.randn(sh, generator=g, device=dev), n) for sh, n, _ in shapes]
+              for step, shapes in cs.FQ_STEPS.items()}
+    bw = cs.peaks_for(torch.cuda.get_device_name(0))[1][0]
+    bound = {step: sum(n * x.numel() * cs.FQ_BYTES[0] for x, n in xs) / bw * 1e3
+             for step, xs in inputs.items()}
+    saved = fq._library, fq.fake_quant_plan
+    plan = fq.fake_quant_plan
+
+    def use(tag, scalar):
+        fq._library = lambda: fq.bind_library(libs[f"fq_{tag}"])
+        fq.fake_quant_plan = (lambda x_ptr, y_ptr, n: 0) if scalar else plan
+
+    big = inputs["cnv_qat"][1][0]
+    with torch.no_grad():
+        want = fq.fake_quant_reference(big, scale, 0.0, -7.0, 7.0)
+        for tag, what, _, scalar in FQ_VARIANTS:
+            use(tag, scalar)
+            differ = int((fq.fake_quant(big, scale, 0.0, -7.0, 7.0) != want).sum())
+            print(f"[fake_quant] {what}: {differ} of {big.numel()} elements differ from the "
+                  f"plain version at {tuple(big.shape)}")
+        times = {tag: {step: [] for step in inputs} for tag, *_ in FQ_VARIANTS}
+        library = {step: [] for step in inputs}
+        copies = {step: [] for step in inputs}
+        outs = {step: [torch.empty_like(x) for x, _ in xs] for step, xs in inputs.items()}
+        for tag, _, _, scalar in FQ_VARIANTS + FQ_VARIANTS[::-1]:
+            use(tag, scalar)
+            for step, xs in inputs.items():
+                copies[step].append(sum(
+                    n * cs.cuda_ms(lambda x=x, y=y: y.copy_(x), reps=9)
+                    for (x, n), y in zip(xs, outs[step])))
+                times[tag][step].append(sum(
+                    n * cs.cuda_ms(lambda x=x: fq.fake_quant(x, scale, 0.0, -7.0, 7.0), reps=9)
+                    for x, n in xs))
+                library[step].append(sum(
+                    n * cs.cuda_ms(lambda x=x: torch.fake_quantize_per_tensor_affine(
+                        x, s_host, 0, -7, 7), reps=9) for x, n in xs))
+    fq._library, fq.fake_quant_plan = saved
+    lib_med = {step: statistics.median(v) for step, v in library.items()}
+    print("[fake_quant] step sums of the forward, ms (median of 2 turns; the share of the "
+          "bytes bound; kernel / library) on " + cs.CARD[0])
+    print("  " + "  ".join(f"{step}: bound {bound[step]:.5f}, library {lib_med[step]:.5f} "
+                           f"(turns {min(library[step]):.5f}-{max(library[step]):.5f}), "
+                           f"a copy of x to y {statistics.median(copies[step]):.5f}"
+                           for step in inputs))
+    for tag, what, _, _ in FQ_VARIANTS:
+        cells = []
+        for step in inputs:
+            t = statistics.median(times[tag][step])
+            cells.append(f"{step} {t:.5f} ({bound[step] / t:.3f}; {t / lib_med[step]:.3f}; "
+                         f"turns {' '.join(f'{v:.5f}' for v in times[tag][step])})")
+        print(f"  {what}: " + "; ".join(cells))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_probes: CUDA is not available; this script runs on a card",
               file=sys.stderr)
         return 2
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("kernel", choices=["lstm", "attention"])
+    parser.add_argument("kernel", choices=["lstm", "attention", "fake_quant"])
     kernel = parser.parse_args().kernel
     cs.phase_card()
     if kernel == "lstm":
         probe_lstm_forward()
-    {"lstm": probe_lstm, "attention": probe_attention}[kernel]()
+    {"lstm": probe_lstm, "attention": probe_attention, "fake_quant": probe_fake_quant}[kernel]()
     return 0
 
 
