@@ -1,5 +1,6 @@
 """PTQ calibration (port of ``brevitas_tpu/graph/calibrate.py``; ported:
-``calibration_mode`` and ``finalize_collect_stats``).
+``calibration_mode``, ``finalize_collect_stats`` and the train/eval
+snapshot the PTQ passes restore, ``_snapshot_modes``/``_restore_modes``).
 
 Inside ``calibration_mode`` the model runs its float forward in training
 mode while the activation quantizers collect their statistics; on exit the
@@ -38,6 +39,17 @@ def _set_disable_quant(model: nn.Module, value: bool) -> None:
             mod.disable_quant = value
 
 
+def _snapshot_modes(model: nn.Module):
+    """Every module's train/eval state (the JAX package's mode attributes are
+    torch's one ``training`` flag)."""
+    return [(mod, mod.training) for mod in model.modules()]
+
+
+def _restore_modes(snap) -> None:
+    for mod, training in snap:
+        mod.training = training
+
+
 @contextmanager
 def calibration_mode(model: nn.Module, enabled: bool = True):
     """Feed calibration batches inside this context: quantization is
@@ -48,7 +60,7 @@ def calibration_mode(model: nn.Module, enabled: bool = True):
     if not enabled:
         yield model
         return
-    modes = [(mod, mod.training) for mod in model.modules()]
+    snap = _snapshot_modes(model)
     _set_disable_quant(model, True)
     model.train()
     try:
@@ -56,5 +68,4 @@ def calibration_mode(model: nn.Module, enabled: bool = True):
     finally:
         finalize_collect_stats(model)
         _set_disable_quant(model, False)
-        for mod, training in modes:
-            mod.training = training
+        _restore_modes(snap)

@@ -1,6 +1,6 @@
 """QAT -> integer-domain serving conversion (port of
 ``brevitas_tpu/graph/convert_int.py``; ported: the QuantLinear twins, the
-QuantConv twin, the QuantMultiheadAttention twin and
+dynamic int8 twin, the QuantConv twin, the QuantMultiheadAttention twin and
 ``convert_integer_inference`` restricted to those layers).
 
 Freeze the trained quantizer state, cache the integer weights and scales,
@@ -57,6 +57,9 @@ def _freeze_act_quant(act_quantizer):
     if act_quantizer.quant_type != QuantType.INT:
         raise ValueError(f"integer serving supports INT input quantizers, got "
                          f"{act_quantizer.quant_type}")
+    if act_quantizer.dynamic:
+        raise ValueError("dynamic act quant has no static scale to freeze: use "
+                         "DynamicInt8InferenceLinear")
     act_quantizer.eval()
     scaling = act_quantizer.scaling
     # a learned scale is a parameter, a constant or collected one a buffer
@@ -221,6 +224,57 @@ class WeightOnlyInt4InferenceLinear(nn.Module):
         flat = x.reshape(-1, self.in_features)
         y = int4_weight_only_matmul(flat, self.w_packed, self.w_scale, self.bias)
         y = y.reshape(*x.shape[:-1], self.out_features).to(x.dtype)
+        return _apply_output_quant(y, self.output_quant)
+
+
+class DynamicInt8InferenceLinear(nn.Module):
+    """Serving twin of a QuantLinear with a dynamic (per-token or per-tensor)
+    INT input quantizer: the layer's own stateless quantizer forms each
+    request's scale, the codes ``round(value / scale)`` go through
+    ``int8_matmul`` with unit scales and no bias (the float32 of the exact
+    int32 accumulator), and the epilogue runs in torch in the JAX package's
+    order, ``((acc * x_scale) * w_scale) + bias``, each step rounded: the
+    kernel's fused ``acc * (x_scale * w_scale)`` would round differently. A
+    dynamic output quantizer is re-applied at every call, any other frozen.
+    Signed-symmetric input grids only."""
+
+    def __init__(self, qlinear: QuantLinear):
+        super().__init__()
+        xq = qlinear.input_quant
+        if xq.quant_type != QuantType.INT or not xq.dynamic:
+            raise ValueError("DynamicInt8InferenceLinear needs a DYNAMIC INT input quantizer")
+        if not xq.cfg.signed:
+            raise ValueError("dynamic int8 serving is signed-symmetric only")
+        with torch.no_grad():
+            qw = qlinear.quant_weight()
+            if float(qw.bit_width) > 8.0:
+                raise ValueError("the int8 path needs bit_width <= 8")
+            w_int = qw.int().t().contiguous()  # (in, out) int8
+            self.register_buffer("w_int", w_int)
+            self.register_buffer("w_scale", qw.scale.reshape(-1).to(torch.float32))
+            self.register_buffer("bias", qlinear.bias.detach().to(torch.float32)
+                                 if qlinear.bias is not None else None)
+            self.register_buffer("unit", torch.ones((), device=w_int.device))
+        self.input_quant = xq.eval()
+        self.out_features = w_int.shape[1]
+        oq = getattr(qlinear, "output_quant", None)
+        if oq is not None and oq.quant_type != QuantType.NONE and oq.dynamic:
+            self.output_quant = None
+            self.dynamic_output_quant = oq.eval()  # stateless, applied at every call
+        else:
+            self.output_quant = _freeze_output_quant(oq)
+            self.dynamic_output_quant = None
+
+    def forward(self, x) -> torch.Tensor:
+        x = _val(x)
+        qt = self.input_quant(x)
+        x_int = torch.round(qt.value / qt.scale).to(torch.int8)
+        acc = int8_matmul(x_int.reshape(-1, x_int.shape[-1]), self.w_int, self.unit, self.unit)
+        y = acc.reshape(*x.shape[:-1], self.out_features) * qt.scale * self.w_scale
+        if self.bias is not None:
+            y = y + self.bias
+        if self.dynamic_output_quant is not None:
+            return self.dynamic_output_quant(y).value
         return _apply_output_quant(y, self.output_quant)
 
 
@@ -498,7 +552,8 @@ class Int8InferenceAttention(nn.Module):
 def convert_integer_inference(model: nn.Module) -> nn.Module:
     """Swap every eligible trained layer for its integer serving twin, in
     place: QuantMultiheadAttention for ``Int8InferenceAttention`` (whose
-    projections become integer twins with it); a QuantLinear for weight-only
+    projections become integer twins with it); a QuantLinear with a dynamic
+    INT input quantizer for ``DynamicInt8InferenceLinear``, for weight-only
     int4 when it has no input quantizer and weights of 4 bits or fewer, else
     ``Int8InferenceLinear`` (frozen input grid, or the carried grid when it
     has no input quantizer; packed weights for W4A8); a QuantConv1d/2d with
@@ -518,6 +573,8 @@ def convert_integer_inference(model: nn.Module) -> nn.Module:
             elif not (isinstance(mod, QuantLinear)
                       and mod.weight_quant.quant_type == QuantType.INT):
                 continue
+            elif mod.input_quant.quant_type == QuantType.INT and mod.input_quant.dynamic:
+                set_module(model, path, DynamicInt8InferenceLinear(mod))
             elif (mod.input_quant.quant_type == QuantType.NONE
                     and float(mod.quant_weight().bit_width) <= 4.0):
                 set_module(model, path, WeightOnlyInt4InferenceLinear(mod))

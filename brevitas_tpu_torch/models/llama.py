@@ -175,6 +175,20 @@ class QuantLlama(nn.Module):
         return torch.stack(outs, dim=1)
 
 
+def llama_smoothquant_regions(model: QuantLlama) -> list:
+    """SmoothQuant migration sites: each block's attention RMSNorm feeds
+    q/k/v; the MLP RMSNorm feeds both the gate and the up projection (they
+    share the input, so one scale migrates into both and silu(gate) * up
+    stays consistent). The RMSNorm's elementwise scale absorbs 1/s."""
+    regions = []
+    for i in range(len(model.blocks)):
+        b = f"blocks.{i}"
+        regions.append(([f"{b}.attn_norm"], [f"{b}.attn.q_proj", f"{b}.attn.k_proj",
+                                             f"{b}.attn.v_proj"]))
+        regions.append(([f"{b}.mlp_norm"], [f"{b}.mlp.gate_proj", f"{b}.mlp.up_proj"]))
+    return regions
+
+
 def quant_llama_tiny(bit_width: int = 8, **kw) -> QuantLlama:
     kw.setdefault("dim", 128)
     kw.setdefault("depth", 2)

@@ -1,6 +1,6 @@
 """Quantized transformer (port of ``brevitas_tpu/models/transformer.py``;
 ported: the block, the model with its learned position table and greedy
-decoding, and ``quant_transformer_tiny``).
+decoding, ``transformer_smoothquant_regions`` and ``quant_transformer_tiny``).
 
 Pre-norm blocks: LayerNorm -> QuantMHA -> residual, LayerNorm -> QuantLinear
 -> QuantReLU -> QuantLinear -> residual, with the residual adds through
@@ -139,6 +139,20 @@ class QuantTransformer(nn.Module):
             logits, caches = self.decode_step(tok, caches, t0 + i)
             tok = torch.argmax(logits, dim=-1)
         return torch.stack(outs, dim=1)
+
+
+def transformer_smoothquant_regions(model) -> list:
+    """The SmoothQuant migration sites of a model with ``blocks`` of
+    QuantTransformerBlock: each block's ln1 feeds the attention's input
+    projections, ln2 the MLP's first linear; the LayerNorm's elementwise
+    affine absorbs 1/s."""
+    regions = []
+    for i in range(len(model.blocks)):
+        b = f"blocks.{i}"
+        regions.append(([f"{b}.ln1"], [f"{b}.attn.q_proj", f"{b}.attn.k_proj",
+                                       f"{b}.attn.v_proj"]))
+        regions.append(([f"{b}.ln2"], [f"{b}.fc1"]))
+    return regions
 
 
 def quant_transformer_tiny(bit_width: int = 8, **kw) -> QuantTransformer:

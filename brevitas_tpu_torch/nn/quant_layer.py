@@ -15,8 +15,13 @@ and TERNARY weights never take the branch (it needs INT weights, as in
 JAX): under bf16 their +-scale values are cast to bf16 like any float
 operand.
 
+With ``_capture_input`` set on a layer, its forward keeps the input it was
+given in ``_bc_last_input``: the PTQ passes (SmoothQuant, GPTQ) read a
+layer's calibration inputs so. A per-token input scale (..., 1) broadcasts
+over the output's last axis like a per-tensor one.
+
 Left out: the cached inference weight, accumulator-aware (A2Q) weights and
-the PTQ hooks.
+the bias-correction hook.
 """
 
 from typing import Optional, Union
@@ -114,6 +119,8 @@ class QuantWBIOL(QuantLayerMixin, nn.Module):
         return self.weight_quant(self.weight)
 
     def forward_quant(self, inp: TensorOrQuant, inner_forward) -> TensorOrQuant:
+        if getattr(self, "_capture_input", False):
+            self._bc_last_input = inp
         qt_in = self.unpack_input(inp)
         if self.input_quant.quant_type != QuantType.NONE:
             quant_input = self.input_quant(qt_in.value)
@@ -132,7 +139,8 @@ class QuantWBIOL(QuantLayerMixin, nn.Module):
             w_scale = quant_weight.scale
             if w_scale.ndim > 1:
                 w_scale = self.output_channel_view(w_scale)
-            if quant_input.scale.numel() > 1 and not self.keeps_channels:
+            if (quant_input.scale.numel() > 1 and not self.keeps_channels
+                    and not self.input_quant.per_token):
                 # a per-channel input grid (C, 1, ...) is a per-output-channel
                 # grid only where output channel c sums input channel c alone
                 raise ValueError(f"{type(self).__name__}: a per-channel input grid needs a "

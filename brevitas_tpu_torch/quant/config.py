@@ -60,6 +60,9 @@ class QuantConfig:
     scaling_impl: ScalingImplType = ScalingImplType.STATS
     scaling_stats_op: StatsOp = StatsOp.MAX
     scaling_per_output_channel: bool = False
+    # per-token activation scaling: one scale per leading position, reduced
+    # over the channel (last) axis; requires scaling_impl=DYNAMIC
+    scaling_per_token: bool = False
     restrict_scaling: RestrictType = RestrictType.FP
     restrict_scaling_float_to_int: FloatToIntImpl = FloatToIntImpl.ROUND
     scaling_min_val: Optional[float] = None

@@ -1,8 +1,8 @@
 """Predefined quantizer configs (port of ``brevitas_tpu/quant/presets.py``).
 
 Ported: the ones the port's models use, the binary and ternary constants,
-the shifted (asymmetric, zero-point) unsigned ones and the learned
-bit-width variants. Compose variants with ``.let(...)``.
+the shifted (asymmetric, zero-point) unsigned ones, the learned bit-width
+variants and the dynamic int8 activation quantizers. Compose variants with ``.let(...)``.
 """
 
 from brevitas_tpu_torch.core.restrict import FloatToIntImpl
@@ -84,3 +84,10 @@ Int8WeightPerTensorFloatLearnedBitWidth = Int8WeightPerTensorFloat.let(
     bit_width_impl=BitWidthImplType.PARAMETER)
 Int8ActPerTensorFloatLearnedBitWidth = Int8ActPerTensorFloat.let(
     bit_width_impl=BitWidthImplType.PARAMETER)
+
+# dynamic activation quantizers: stateless scales from each call's input
+# (the LLM serving pattern), per tensor or one per token
+Int8DynamicActPerTensorFloat = _INT.let(
+    bit_width=8, scaling_impl=ScalingImplType.DYNAMIC,
+    scaling_stats_op=StatsOp.MAX, scaling_min_val=1e-10)
+Int8DynamicActPerTokenFloat = Int8DynamicActPerTensorFloat.let(scaling_per_token=True)

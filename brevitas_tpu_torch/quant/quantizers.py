@@ -5,7 +5,9 @@ Ported: CONST and learned PARAMETER bit widths (``BitWidth``); CONST
 scaling, learned PARAMETER scaling (``ParameterScaling``), STATS scaling of
 weights (``StatsScaling``) and two-phase PARAMETER_FROM_STATS scaling of
 activations (``ParameterFromRuntimeStatsScaling``) with its migration to a
-learned parameter (``convert_runtime_stats_to_parameter``); the ZERO,
+learned parameter (``convert_runtime_stats_to_parameter``), and DYNAMIC
+scaling (``StatsScaling`` of each call's input, per tensor or, with
+``scaling_per_token``, one scale per token); the ZERO,
 learned PARAMETER, STATS (of the weight) and two-phase PARAMETER_FROM_STATS
 zero points, quantized onto the grid or not (``ZeroPoint``); every
 float-to-int rounding, STOCHASTIC_ROUND from a generator the quantizer
@@ -240,8 +242,9 @@ class ParameterFromRuntimeStatsScaling(nn.Module):
 def build_scaling(cfg: QuantConfig, bshape: Tuple[int, ...],
                   init_stats_input: Optional[torch.Tensor] = None) -> nn.Module:
     """Resolve ScalingImplType into a scaling module. Ported: CONST,
-    PARAMETER, STATS of a parameter (``init_stats_input`` given) and
-    PARAMETER_FROM_STATS collected at run time."""
+    PARAMETER, STATS of a parameter (``init_stats_input`` given),
+    PARAMETER_FROM_STATS collected at run time and DYNAMIC (stateless
+    statistics of every call's input)."""
     impl = ScalingImplType(cfg.scaling_impl)
     if impl == ScalingImplType.CONST:
         if cfg.scaling_const is None:
@@ -261,6 +264,9 @@ def build_scaling(cfg: QuantConfig, bshape: Tuple[int, ...],
         return StatsScaling(cfg, stats_fn, bshape)
     if impl == ScalingImplType.PARAMETER_FROM_STATS and init_stats_input is None:
         return ParameterFromRuntimeStatsScaling(cfg, stats_fn, bshape)
+    if impl == ScalingImplType.DYNAMIC:
+        # nothing to collect, train or checkpoint: the LLM dynamic-quant pattern
+        return StatsScaling(cfg, stats_fn, bshape)
     raise NotImplementedError(f"scaling {impl.value} is not ported yet")
 
 
@@ -486,22 +492,37 @@ class ParameterQuantizer(_FloatToIntMixin, nn.Module):
 
 class ActQuantizer(_FloatToIntMixin, nn.Module):
     """Activation-side quantizer: INT with per-tensor or per-channel scaling
-    (``num_channels`` scales over axis 1 of the input), BINARY (the input
-    clamped to [-scale, scale], then its sign times the scale), TERNARY, or
-    NONE."""
+    (``num_channels`` scales over axis 1 of the input) or, DYNAMIC and
+    symmetric, one scale per token (``scaling_per_token``: each position's
+    statistic over the last axis, a scale of shape ``x.shape[:-1] + (1,)``),
+    BINARY (the input clamped to [-scale, scale], then its sign times the
+    scale), TERNARY, or NONE."""
 
     def __init__(self, cfg: QuantConfig, num_channels: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
         self.quant_type = QuantType(cfg.quant_type)
         self.disable_quant = False  # calibration mode: collect, pass the float value
-        self.per_channel = False
+        self.per_channel = self.per_token = self.dynamic = False
         if self.quant_type == QuantType.NONE:
             return
         _check_ported(self.quant_type)
         self.per_channel = bool(cfg.scaling_per_output_channel)
         if self.per_channel and num_channels is None:
             raise ValueError("per-channel act quant requires num_channels")
+        self.dynamic = ScalingImplType(cfg.scaling_impl) == ScalingImplType.DYNAMIC
+        self.per_token = bool(cfg.scaling_per_token)
+        if self.per_token:
+            if not self.dynamic:
+                raise ValueError("per-token activation scaling requires scaling_impl=DYNAMIC")
+            if self.per_channel:
+                raise ValueError("per-token and per-channel scaling are exclusive")
+            if ZeroPointImplType(cfg.zero_point_impl) != ZeroPointImplType.ZERO:
+                raise ValueError("per-token scaling is symmetric-only")
+            self._token_rc = _RestrictClamp(cfg)
+            self._token_stats = S.stats_fn(cfg.scaling_stats_op,
+                                           high_percentile_q=cfg.high_percentile_q,
+                                           low_percentile_q=cfg.low_percentile_q)
         self.float_to_int = FloatToInt(cfg.float_to_int)
         self.bit_width_impl = BitWidth(cfg)
         bshape = (num_channels,) if self.per_channel else ()
@@ -511,6 +532,12 @@ class ActQuantizer(_FloatToIntMixin, nn.Module):
 
     def _stats_view(self, x: torch.Tensor) -> torch.Tensor:
         return stats_view(x, self.per_channel, channel_axis=1)
+
+    def _token_threshold(self, x: torch.Tensor) -> torch.Tensor:
+        """One threshold per token, (..., 1) against ``x``."""
+        t = self._token_stats(x.reshape(-1, x.shape[-1]))
+        t = self._token_rc.forward(self._token_rc.preprocess_runtime(t))
+        return t.reshape(*x.shape[:-1], 1)
 
     def _channel_view(self, v, x: torch.Tensor):
         """A per-channel (C,) scale or zero point as (C, 1, ..., 1) against
@@ -549,10 +576,19 @@ class ActQuantizer(_FloatToIntMixin, nn.Module):
         return Qf.rescaling_scale(self.scaling(view), bit_width, signed=cfg.signed,
                                   narrow_range=cfg.narrow_range)
 
+    def _int_scale_of(self, x: torch.Tensor, view: torch.Tensor, bit_width):
+        if not self.per_token:
+            return self._int_scale(view, bit_width)
+        cfg = self.cfg
+        return Qf.rescaling_scale(self._token_threshold(x), bit_width, signed=cfg.signed,
+                                  narrow_range=cfg.narrow_range)
+
     def forward(self, x: torch.Tensor) -> QuantTensor:
         cfg = self.cfg
         if self.quant_type == QuantType.NONE:
             return QuantTensor(x, training=self.training)
+        if self.disable_quant and self.dynamic:
+            return QuantTensor(x, training=self.training)  # stateless: nothing to collect
         view = self._stats_view(x)
         if self.disable_quant:
             # calibration mode: the scaling and zero-point statistics
@@ -572,7 +608,7 @@ class ActQuantizer(_FloatToIntMixin, nn.Module):
             return QuantTensor(self.delay(x, y), scale, 0.0, bit_width, signed=True,
                                training=self.training)
         bit_width = self.bit_width_impl()
-        scale = self._int_scale(view, bit_width)
+        scale = self._int_scale_of(x, view, bit_width)
         zp = self.zero_point(view, scale, bit_width)
         scale, zp = self._channel_view(scale, x), self._channel_view(zp, x)
         y = int_fake_quant(x, scale, zp, bit_width, cfg, self._float_to_int)

@@ -70,6 +70,21 @@ Phases; any failure exits non-zero and prints no result:
              packed step. The model it timed decodes again on the card; its
              tokens equal the served ones, and its logits of all 32
              sequences over the 128 steps are checked as in 8.
+10b. llm_ptq - examples.llm_ptq.main at bench's Llama width (dim 1024,
+             depth 6, 16 heads; batch 32, sequence 64, 4 calibration
+             batches, 300 float training steps), run (a) --gptq
+             --dynamic-act --convert-int (43 DynamicInt8InferenceLinear
+             twins) and run (b) --convert-int --kv-bits 8 (SmoothQuant,
+             static calibration, 6 Int8InferenceAttention twins): launches
+             over main and over one served forward of a held-out batch
+             asserted (43 int8_matmul a forward, and 6 int8_attention in
+             (b)); each int8_matmul call of that forward bit for bit with
+             int8_matmul_reference on the same codes; every twin of a CPU
+             copy fed the card's input bit for bit, attention rows as
+             below; the JAX tests' bounds on bits per character (a: quant
+             and served below float + 0.1, served within 1e-3 of quant; b:
+             quant below float + 1.5); each stage's host ms, the GPTQ row
+             steps, ms a served forward and its device busy time.
 11. lstm_kernels - quant_lstm_cell's forward, its stage-table build and
              its backward at the QuantLSTM QAT leg's shape (B 64, H 512),
              unaligned ones ((3, 100), (3, 101)) and (1024, 512), with sa and
@@ -1428,6 +1443,215 @@ def phase_serve_decode(dev) -> dict:
         out["launches"] = counts
         outs[what] = out
     return outs
+
+
+# examples.llm_ptq at the width of bench.py's Llama legs (bench.py:577): dim
+# 1024, depth 6, 16 heads (SwiGLU width 2,752), at the CLI's batch (32),
+# sequence (64), calibration batches (4), bit width (8) and float training
+# steps (300)
+LLM_PTQ_ARGV = ["--arch", "llama", "--dim", "1024", "--depth", "6", "--heads", "16"]
+LLM_PTQ_RUNS = {"dynamic_gptq": ["--gptq", "--dynamic-act", "--convert-int"],
+                "static_kv8": ["--convert-int", "--kv-bits", "8"]}
+LLM_PTQ_TEST_BATCHES = 2   # main scores bits per character on 2 held-out batches
+LLM_PTQ_LINEARS = 6 * 7 + 1  # 7 linears a block, and the head
+# fake_quant launches over main, one a per-tensor quantizer call: the traced
+# forward of the region search (in training mode, its quantizers collecting);
+# in run (b) also the two fake-quant scoring forwards and the conversion's
+# probe of each quantizer it freezes (a (1, 1) call). Run (a) has the
+# linears' 43 input quantizers; run (b) adds q/k/v/probs, 11 a block, 67 in
+# all
+LLM_PTQ_FQ = {"dynamic_gptq": LLM_PTQ_LINEARS, "static_kv8": (6 * 11 + 1) * 4}
+LLM_PTQ_CHECK_SEQS = 4     # sequences of a served batch held against a CPU copy
+# bpc over float, the JAX tests'. At this width the model memorizes the
+# corpus (float bpc about 0.046), so these bounds are loose; the two below,
+# from the bpc measured on an H100 (quant 1.5e-5 to 2.2e-5 over float,
+# served within 4.8e-6 of quant in both runs), are the ones that can fail
+LLM_PTQ_BOUNDS = {"dynamic_gptq": 0.1, "static_kv8": 1.5}
+LLM_PTQ_QUANT_OVER_FLOAT = 1e-3  # both runs
+# |served - quant|: run (a)'s dynamic twin is numerically the fake-quant
+# model (the JAX twin's docstring); run (b)'s static twins as measured
+LLM_PTQ_SERVED_VS_QUANT = {"dynamic_gptq": 1e-3, "static_kv8": 1e-4}
+
+
+@contextlib.contextmanager
+def recorded_int8_matmul_calls(store: list):
+    """``graph.convert_int.int8_matmul`` recording each call's arguments and
+    result (the launch still counted)."""
+    from brevitas_tpu_torch.graph import convert_int as CI
+
+    real = CI.int8_matmul
+
+    def recording(*args, **kw):
+        y = real(*args, **kw)
+        store.append((args, kw, y))
+        return y
+
+    CI.int8_matmul = recording
+    try:
+        yield
+    finally:
+        CI.int8_matmul = real
+
+
+def check_llm_twins(model, ids: torch.Tensor, what: str) -> int:
+    """Serve ``ids`` and hold a CPU copy of the served model against the
+    card, layer by layer: every int8_matmul twin of the copy (dynamic or
+    static) fed the card's input to it, bit for bit; the attention twins
+    through AttentionTap (at most 1 % of token rows differ, S3) and then the
+    copy's logits fed the card's attention outputs, bit for bit; and the
+    free-running copy's logits (compare_logits: a float attention core sums
+    in another order on the CPU). The first LLM_PTQ_CHECK_SEQS sequences.
+    Returns the twins checked."""
+    from brevitas_tpu_torch.graph.convert_int import (
+        DynamicInt8InferenceLinear,
+        Int8InferenceLinear,
+    )
+
+    n = LLM_PTQ_CHECK_SEQS
+    cpu_model = copy.deepcopy(model).to("cpu")
+    seen = []
+    hooks = [mod.register_forward_hook(
+        lambda mod, args, out, name=name: seen.append(
+            (name, _to_cpu(args[0][:n]), out[:n].cpu())))
+        for name, mod in model.named_modules()
+        if isinstance(mod, (DynamicInt8InferenceLinear, Int8InferenceLinear))]
+    tap = AttentionTap(model, n)
+    try:
+        with torch.no_grad():
+            logits = model(ids)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+        tap.detach()
+    kinds, worst = {}, 0.0
+    with torch.no_grad():
+        for name, inp, got in seen:
+            twin = cpu_model.get_submodule(name)
+            want = twin(inp)
+            kinds[type(twin).__name__] = kinds.get(type(twin).__name__, 0) + 1
+            worst = max(worst, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what}: twin {name} disagrees with its CPU copy")
+        print(f"[{what}] {len(seen)} int8_matmul twins {kinds} of the CPU copy fed the card's "
+              f"inputs ({n} sequences): bit for bit (max |diff| {worst:.3g})")
+        cpu_ids = ids[:n].cpu()
+        compare_logits(logits[:n].cpu(), cpu_model(cpu_ids), what)
+        if tap.mods:
+            replay = AttentionTap(cpu_model, n, replay=tap.record)
+            check_replay(replay, cpu_model(cpu_ids), logits[:n].cpu(), what)
+    return len(seen)
+
+
+def phase_llm_ptq(dev, run: str) -> dict:
+    """examples.llm_ptq.main on the card at full width (LLM_PTQ_ARGV), run
+    (a) ``--gptq --dynamic-act --convert-int`` (every linear a
+    DynamicInt8InferenceLinear) or run (b) ``--convert-int --kv-bits 8``
+    (SmoothQuant, static calibration, the attention core on int8_attention):
+    the launches over main (its two served scoring forwards, and fake_quant
+    as LLM_PTQ_FQ says) and over one served forward of a held-out batch,
+    asserted;
+    each int8_matmul call of that forward against int8_matmul_reference on
+    the same codes, bit for bit; the twins against a CPU copy
+    (check_llm_twins); the JAX tests' bpc bounds and the measured ones
+    (LLM_PTQ_QUANT_OVER_FLOAT, LLM_PTQ_SERVED_VS_QUANT); each stage's host ms, the
+    GPTQ row steps, ms a served forward and its device busy time."""
+    from brevitas_tpu_torch.examples import llm_ptq
+    from brevitas_tpu_torch.graph.convert_int import (
+        DynamicInt8InferenceLinear,
+        Int8InferenceAttention,
+        Int8InferenceLinear,
+    )
+    from brevitas_tpu_torch.kernels import int8_matmul_reference
+
+    what = f"llm_ptq_{run}"
+    dynamic = run == "dynamic_gptq"
+    keep = {}
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    result = llm_ptq.main(LLM_PTQ_ARGV + LLM_PTQ_RUNS[run] + ["--device", str(dev)], keep=keep)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = _launch_counts()
+    _record_path(what, counts)
+    attn = 0 if dynamic else 6
+    expected = dict.fromkeys(counts, 0)
+    expected.update(int8_matmul=LLM_PTQ_LINEARS * LLM_PTQ_TEST_BATCHES,
+                    int8_attention=attn * LLM_PTQ_TEST_BATCHES,
+                    fake_quant=LLM_PTQ_FQ[run])
+    print(f"[{what}] main {main_s:.1f} s ({CARD[0]}): launches {counts}")
+    if counts != expected:
+        raise AssertionError(f"{what}: expected launches {expected} over main")
+
+    model, test_x = keep["model"], keep["test_x"]
+    twins = {cls.__name__: sum(isinstance(m, cls) for m in model.modules())
+             for cls in (DynamicInt8InferenceLinear, Int8InferenceLinear, Int8InferenceAttention)}
+    want_twins = ({"DynamicInt8InferenceLinear": LLM_PTQ_LINEARS, "Int8InferenceLinear": 0,
+                   "Int8InferenceAttention": 0} if dynamic else
+                  {"DynamicInt8InferenceLinear": 0, "Int8InferenceLinear": LLM_PTQ_LINEARS,
+                   "Int8InferenceAttention": 6})
+    if twins != want_twins:
+        raise AssertionError(f"{what}: serving twins {twins}, expected {want_twins}")
+
+    ids = test_x[0]
+    calls = []
+    _reset_launch_counts()
+    with torch.no_grad(), recorded_int8_matmul_calls(calls):
+        model(ids)
+    torch.cuda.synchronize()
+    per_forward = _launch_counts()
+    want_fwd = dict.fromkeys(per_forward, 0)
+    want_fwd.update(int8_matmul=LLM_PTQ_LINEARS, int8_attention=attn)
+    print(f"[{what}] one served forward of {tuple(ids.shape)}: launches {per_forward}")
+    if per_forward != want_fwd:
+        raise AssertionError(f"{what}: expected launches {want_fwd} a served forward")
+    shapes = set()
+    with torch.no_grad():
+        for args, kw, y in calls:
+            if not torch.equal(y, int8_matmul_reference(*args, **kw)):
+                raise AssertionError(f"{what}: int8_matmul at {tuple(args[0].shape)} x "
+                                     f"{tuple(args[1].shape)} differs from its plain version")
+            shapes.add((args[0].shape[0], *args[1].shape))
+    print(f"[{what}] {len(calls)} int8_matmul calls against int8_matmul_reference on the same "
+          f"codes: bit for bit; (M, K, N) {sorted(shapes)}")
+    checked = check_llm_twins(model, ids, what)
+
+    fb, qb, sb = result["float_bpc"], result["quant_bpc"], result["served_bpc"]
+    bound = LLM_PTQ_BOUNDS[run]
+    print(f"[{what}] bits per character: float {fb}, quant {qb}, served {sb} (bounds: quant "
+          f"and served below float + {bound}, quant within {LLM_PTQ_QUANT_OVER_FLOAT} of float, "
+          f"served within {LLM_PTQ_SERVED_VS_QUANT[run]} of quant)")
+    if not all(np.isfinite(v) for v in (fb, qb, sb)):
+        raise AssertionError(f"{what}: bits per character not finite")
+    if qb >= fb + bound or (dynamic and sb >= fb + bound):
+        raise AssertionError(f"{what}: bits per character out of the JAX tests' bound")
+    if abs(qb - fb) > LLM_PTQ_QUANT_OVER_FLOAT:
+        raise AssertionError(f"{what}: fake-quant {qb} and float {fb} bpc differ")
+    if abs(sb - qb) > LLM_PTQ_SERVED_VS_QUANT[run]:
+        raise AssertionError(f"{what}: served {sb} and fake-quant {qb} bpc differ")
+
+    def forward():
+        model(ids)
+        torch.cuda.synchronize()
+
+    with torch.no_grad():
+        forward()
+        times = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            forward()
+            times.append((time.perf_counter() - t1) * 1e3)
+    ms = statistics.median(times)
+    print(f"[{what}] stages (host ms, {CARD[0]}): {result['stage_ms']}; GPTQ row steps "
+          f"{result['gptq_steps']}; {ms:.3f} ms a served forward of {tuple(ids.shape)} (median "
+          "of 5, host clock with synchronize)")
+    out = {"card": CARD[0], "bpc": {"float": fb, "quant": qb, "served": sb},
+           "launches_over_main": counts, "launches_per_forward": per_forward,
+           "stage_ms": result["stage_ms"], "gptq_steps": result["gptq_steps"],
+           "regions": result["regions"], "main_s": main_s, "ms_per_forward": ms,
+           "twins_checked": checked}
+    out["profile"] = profile_steps(forward, what, "served forward")
+    return out
 
 
 # bench.py's quantlstm_int8_qat leg (bench.py:427-491): QuantLSTM(128, 512,
@@ -3771,6 +3995,7 @@ def main() -> int:
     w4a8_prefill = timed("llama_w4a8_prefill", phase_llama_prefill, dev, w4a8=True)
     w4a8_decode = timed("llama_w4a8_decode", phase_llama_decode, dev, None, w4a8=True)
     serve_decode = timed("serve_decode", phase_serve_decode, dev)
+    llm = {run: timed(f"llm_ptq_{run}", phase_llm_ptq, dev, run) for run in LLM_PTQ_RUNS}
     lstm = {"float32": timed("lstm_qat_float32", phase_lstm_qat, dev),
             "bf16": timed("lstm_qat_bf16", phase_lstm_qat, dev, bf16=True)}
     lfc_qat = {d: timed(f"lfc_qat_{d}", phase_lfc_qat, dev, bf16=d == "bf16")
@@ -3793,7 +4018,9 @@ def main() -> int:
                     **{f"llama_decode_{k}": v["launches"]["int8_matmul"]
                        for k, v in decode.items()},
                     **{k: v["launches"]["int8_matmul"] for k, v in serve_decode.items()},
-                    "quartznet_serving": quartznet["launches_per_forward"]["int8_matmul"]}
+                    "quartznet_serving": quartznet["launches_per_forward"]["int8_matmul"],
+                    **{f"llm_ptq_{k}": v["launches_over_main"]["int8_matmul"]
+                       for k, v in llm.items()}}
     int4_by_path = {"llama_w4a8_prefill": w4a8_prefill["launches"]["int4_matmul"],
                     "llama_w4a8_decode": w4a8_decode["launches"]["int4_matmul"]}
     int4_decode = llama_gemm_sums(rows, DECODE_BATCH, "int4_matmul")
@@ -3852,7 +4079,8 @@ def main() -> int:
                        "brevitas_tpu_torch/csrc/int4_weight_only_matmul.cu",
                        "brevitas_tpu/kernels/int4.py:229"),
         prefill_attention_entry(attn_rows, prefill["launches"]["int8_attention"]
-                                + w4a8_prefill["launches"]["int8_attention"]),
+                                + w4a8_prefill["launches"]["int8_attention"]
+                                + llm["static_kv8"]["launches_over_main"]["int8_attention"]),
         decode_entry,
         lstm_summary(lstm_rows, "quant_lstm_cell", lstm, "brevitas_tpu/kernels/lstm_cell.py:176",
                      "add_f32"),
@@ -3865,7 +4093,7 @@ def main() -> int:
             PATH_COUNTS[path][name] for path in
             [f"lfc_qat_{d}" for d in lfc_qat] + [f"cnv_qat_{k}" for k in cnv_qat]
             + [f"mobilenet_qat_{d}" for d in mobilenet] + ["quartznet_serving"]
-            + [f"binary_qat_{k}" for k in binary_qat]))
+            + [f"binary_qat_{k}" for k in binary_qat] + [f"llm_ptq_{k}" for k in llm]))
           for name in ("fake_quant", "fake_quant_backward")),
     ], "serve": serve_out,
         "llama_prefill": {k: v for k, v in prefill.items() if k != "profile"},
@@ -3875,6 +4103,8 @@ def main() -> int:
         "llama_w4a8_decode": {k: v for k, v in w4a8_decode.items() if k != "profile"},
         "serve_decode": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
                          for k, v in serve_decode.items()},
+        "llm_ptq": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
+                    for k, v in llm.items()},
         "lstm_qat": {d: {k: v for k, v in run.items() if k != "profile"}
                      for d, run in lstm.items()},
         "lfc_qat": {d: {k: v for k, v in run.items() if k != "profile"}
