@@ -51,9 +51,16 @@ def int_scaling(bit_width, *, signed: bool, narrow_range: bool):
     return max_int(signed, narrow_range, bit_width)
 
 
+def po2_int_scaling(bit_width, *, signed: bool):
+    """Power-of-two integer threshold, 2 ** bits (signed: 2 ** (bits - 1)),
+    which keeps a power-of-two scale a power of two."""
+    return max_int(signed, False, bit_width) + 1.0
+
+
 def rescaling_scale(threshold: torch.Tensor, bit_width, *, signed: bool,
-                    narrow_range: bool) -> torch.Tensor:
-    """scale = float threshold / integer threshold. The integer threshold
+                    narrow_range: bool, po2_int_scale: bool = False) -> torch.Tensor:
+    """scale = float threshold / integer threshold (``po2_int_scaling``
+    for power-of-two restricted scales). The integer threshold
     divides as a tensor filled on the threshold's device: PyTorch on CUDA
     multiplies by the reciprocal of a Python-number divisor, which differs
     from the division by an ulp about half the time (for 7 or 127), so the
@@ -61,7 +68,8 @@ def rescaling_scale(threshold: torch.Tensor, bit_width, *, signed: bool,
     tensor made from the Python number, copies nothing from the host and so
     does not wait for the card. A learned bit width gives a tensor divisor,
     through which its gradient flows."""
-    divisor = int_scaling(bit_width, signed=signed, narrow_range=narrow_range)
+    divisor = (po2_int_scaling(bit_width, signed=signed) if po2_int_scale
+               else int_scaling(bit_width, signed=signed, narrow_range=narrow_range))
     if torch.is_tensor(divisor):
         return threshold / divisor
     return threshold / torch.full_like(threshold, divisor)

@@ -2,30 +2,33 @@
 ``brevitas_tpu/examples/llm_ptq.py``).
 
 Train a float character LM (the quant architecture with quantization off),
-then run the LLM PTQ stack on it:
+then run the LLM PTQ stack on it, in the JAX package's order:
 
-  8-bit per-channel weights and per-tensor activation quantizers in every
-  linear  ->  SmoothQuant on the norm -> linear regions found from a traced
-  forward  ->  calibration, or dynamic per-token int8 activations  ->
-  GPTQ  ->  integer serving (``graph.convert_integer_inference``)
+  8-bit per-channel weights (``--mx``: MX groupwise INT weights, a
+  power-of-two scale per ``--weight-group`` inputs) and per-tensor
+  activation quantizers in every linear  ->  ``--rotate``: a Hadamard
+  rotation of each block's v_proj -> out_proj  ->  SmoothQuant (or
+  ``--awq``'s per-region search) on the norm -> linear regions found from
+  a traced forward  ->  calibration, or dynamic per-token int8
+  activations  ->  ``--gptq`` or ``--gpfq``  ->  integer serving
+  (``graph.convert_integer_inference``)
 
 and report bits per character of the float, the fake-quant and the served
 model as one JSON line. ``--kv-bits`` quantizes the attention core too (q
 and the probabilities at 8 bits, K and V at that width), which then serves
 on ``int8_attention``; every converted linear serves on ``int8_matmul``
-(``DynamicInt8InferenceLinear`` with ``--dynamic-act``). The port's line
-adds each stage's host milliseconds (``stage_ms``, the card synchronized
-at each stage's end) and the GPTQ row steps (``gptq_steps``).
+(``DynamicInt8InferenceLinear`` with ``--dynamic-act``). GPTQ and GPFQ
+leave groupwise weights as they are, and their linears stay on the
+fake-quant path when served. The port's line adds each stage's host
+milliseconds (``stage_ms``, the card synchronized at each stage's end)
+and the GPTQ and GPFQ row steps (``gptq_steps``, ``gpfq_steps``).
 
 Run on the card:
 
     python -m brevitas_tpu_torch.examples.llm_ptq --arch llama --dim 1024 \\
         --depth 6 --heads 16 --gptq --dynamic-act --convert-int
 
-``--device cpu`` runs anywhere. Not ported yet, each raising
-``NotImplementedError``: ``--awq`` (``graph/awq.py``), ``--gpfq``
-(``graph/gpfq.py``), ``--rotate`` (``graph/rotate.py``) and ``--mx`` (MX
-groupwise weights).
+``--device cpu`` runs anywhere.
 """
 
 import argparse
@@ -50,12 +53,6 @@ from brevitas_tpu_torch.nn.linear import QuantLinear
 from brevitas_tpu_torch.quant import presets
 from brevitas_tpu_torch.quant.quantizers import ActQuantizer, ParameterQuantizer
 from brevitas_tpu_torch.utils import eval_mode, resolve_device
-
-NOT_PORTED = {"awq": "graph/awq.py (AWQ's per-region alpha search)",
-              "gpfq": "graph/gpfq.py (GPFQ)",
-              "rotate": "graph/rotate.py (QuaRot-style Hadamard rotation)",
-              "mx": "MX groupwise weights (the groupwise quantizers)"}
-
 
 def smoothquant_regions(model, sample_tokens=None):
     """SmoothQuant migration sites: found from a traced forward when
@@ -127,11 +124,16 @@ def _forward(m, b):
 
 def quantize(model, args) -> None:
     """Put the PTQ quantizers in, in place: 8-bit (``--bit-width``)
-    per-channel weights and per-tensor input quantizers in every linear;
-    with ``--kv-bits``, q and the probabilities at 8 bits and K/V at that
-    width in every attention core."""
+    per-channel weights, or with ``--mx`` MX groupwise ones, and per-tensor
+    input quantizers in every linear; with ``--kv-bits``, q and the
+    probabilities at 8 bits and K/V at that width in every attention
+    core."""
     device = next(model.parameters()).device
-    wq = presets.Int8WeightPerChannelFloat.let(bit_width=float(args.bit_width))
+    if args.mx:
+        wq = presets.MXInt8Weight.let(bit_width=float(args.bit_width),
+                                      scaling_per_group=args.weight_group)
+    else:
+        wq = presets.Int8WeightPerChannelFloat.let(bit_width=float(args.bit_width))
     aq = presets.Int8ActPerTensorFloat.let(bit_width=float(args.bit_width),
                                            collect_stats_steps=max(args.calib_batches, 1))
     for _, mod in G.find_modules(model, QuantLinear):
@@ -148,14 +150,22 @@ def quantize(model, args) -> None:
 
 
 def post_training(model, args, calib, stage=None):
-    """SmoothQuant on the regions of a traced forward (unless
-    ``--no-smoothquant``), then calibration or, with ``--dynamic-act``,
-    dynamic per-token input quantizers, then GPTQ with ``--gptq``. Returns
-    the regions and the GPTQ row steps."""
+    """With ``--rotate``, the Hadamard rotations; then the regions of a
+    traced forward and AWQ (``--awq``) or SmoothQuant (unless
+    ``--no-smoothquant``) on them; then calibration or, with
+    ``--dynamic-act``, dynamic per-token input quantizers; then GPTQ
+    (``--gptq``) or GPFQ (``--gpfq``). Returns the regions and the row
+    steps of each, ``{"gptq": n, "gpfq": n}``."""
     stage = stage or _Stages(torch.device("cpu"))
-    with stage("smoothquant"):
+    if args.rotate:
+        with stage("rotate"):
+            pairs, head_dim = G.transformer_rotation_pairs(model)
+            G.apply_rotation(model, pairs, block_size=head_dim)
+    with stage("awq" if args.awq else "smoothquant"):
         regions = smoothquant_regions(model, sample_tokens=calib[0][:1])
-        if not args.no_smoothquant:
+        if args.awq:
+            G.apply_awq(model, regions, calib, forward_fn=_forward)
+        elif not args.no_smoothquant:
             G.apply_act_equalization(model, regions, calib, alpha=args.smoothquant_alpha,
                                      forward_fn=_forward)
     with stage("calibration"):
@@ -165,18 +175,19 @@ def post_training(model, args, calib, stage=None):
             with torch.no_grad(), G.calibration_mode(model):
                 for b in calib:
                     _forward(model, b)
-    gptq_steps = 0
-    if args.gptq:
-        with stage("gptq"):
-            report = G.apply_gptq(model, calib, forward_fn=_forward)
-        gptq_steps = sum(G.get_module(model, p).reduce_size for p in report)
-    return regions, gptq_steps
+    steps = {"gptq": 0, "gpfq": 0}
+    for name, solve in (("gptq", G.apply_gptq), ("gpfq", G.apply_gpfq)):
+        if getattr(args, name):
+            with stage(name):
+                report = solve(model, calib, forward_fn=_forward)
+            steps[name] = sum(G.get_module(model, p).reduce_size for p in report)
+    return regions, steps
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser("brevitas_tpu_torch LLM-style PTQ")
     p.add_argument("--arch", choices=("gpt", "llama"), default="gpt",
-                   help="gpt = LayerNorm/ReLU QuantTransformer; "
+                   help="gpt = LayerNorm + ReLU MLP QuantTransformer; "
                         "llama = RMSNorm + RoPE + SwiGLU QuantLlama")
     p.add_argument("--train-steps", type=int, default=300)
     p.add_argument("--batch", type=int, default=32)
@@ -189,13 +200,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--calib-batches", type=int, default=4)
     p.add_argument("--no-smoothquant", action="store_true")
     p.add_argument("--smoothquant-alpha", type=float, default=0.5)
-    p.add_argument("--awq", action="store_true", help="not ported yet")
+    p.add_argument("--awq", action="store_true",
+                   help="AWQ's per-region alpha search instead of fixed-alpha SmoothQuant")
     p.add_argument("--gptq", action="store_true")
-    p.add_argument("--gpfq", action="store_true", help="not ported yet")
+    p.add_argument("--gpfq", action="store_true",
+                   help="GPFQ greedy path-following weight quantization (instead of --gptq)")
     p.add_argument("--dynamic-act", action="store_true",
                    help="per-token dynamic act quant instead of calibrated static scales")
-    p.add_argument("--rotate", action="store_true", help="not ported yet")
-    p.add_argument("--mx", action="store_true", help="not ported yet")
+    p.add_argument("--rotate", action="store_true",
+                   help="QuaRot-style Hadamard rotation, by head, of each block's "
+                        "v_proj -> out_proj before the regions are found")
+    p.add_argument("--mx", action="store_true",
+                   help="MX groupwise INT weights (power-of-two group scales) instead of "
+                        "per-channel; GPTQ and GPFQ leave them as they are")
+    p.add_argument("--weight-group", type=int, default=32,
+                   help="the MX group size along the reduction axis")
     p.add_argument("--convert-int", action="store_true",
                    help="finish with integer-serving conversion")
     p.add_argument("--kv-bits", type=int, default=0,
@@ -207,9 +226,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.gptq and args.gpfq:
         p.error("--gptq and --gpfq are alternatives; pick one")
-    for flag, what in NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet: it waits for {what}")
     return args
 
 
@@ -248,7 +264,7 @@ def main(argv=None, keep: Optional[dict] = None) -> dict:
     bpc_float = bits_per_char(model, test_x, test_y)
 
     quantize(model, args)
-    regions, gptq_steps = post_training(model, args, calib, stage)
+    regions, steps = post_training(model, args, calib, stage)
     eval_mode(model)
     bpc_quant = bits_per_char(model, test_x, test_y)
 
@@ -264,7 +280,7 @@ def main(argv=None, keep: Optional[dict] = None) -> dict:
               "awq": args.awq, "gptq": args.gptq, "gpfq": args.gpfq,
               "dynamic_act": args.dynamic_act, "mx": args.mx, "rotate": args.rotate,
               "kv_bits": args.kv_bits, "vocab": vocab, "regions": len(regions),
-              "gptq_steps": gptq_steps, "stage_ms": stage.ms}
+              "gptq_steps": steps["gptq"], "gpfq_steps": steps["gpfq"], "stage_ms": stage.ms}
     print(json.dumps(result))
     if keep is not None:
         keep.update(model=model, test_x=test_x, test_y=test_y)

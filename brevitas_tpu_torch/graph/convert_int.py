@@ -88,6 +88,18 @@ def _apply_output_quant(y: torch.Tensor, frozen) -> torch.Tensor:
     return (q - zp) * s
 
 
+def _weight_scale(qw: QuantTensor, out_features: int) -> torch.Tensor:
+    """A weight's scale as a float32 vector: one value, or one an output
+    channel. Any other scale (groupwise MX weights: one a group, expanded
+    to the weight's shape) has no integer twin: ``ValueError``, and
+    ``convert_integer_inference`` leaves the layer on its fake-quant path."""
+    s = qw.scale.reshape(-1).to(torch.float32)
+    if s.numel() not in (1, out_features):
+        raise ValueError(f"integer serving needs a per-tensor or per-output-channel weight "
+                         f"scale, got {s.numel()} values for {out_features} channels")
+    return s
+
+
 def _val(x):
     """Serving twins consume plain tensors; an upstream quant layer may hand
     over a QuantTensor — take its value."""
@@ -132,8 +144,8 @@ class Int8InferenceLinear(nn.Module):
             bit_width = float(qw.bit_width)
             if bit_width > 8.0:
                 raise ValueError("the int8 path needs bit_width <= 8")
+            w_scale = _weight_scale(qw, qw.value.shape[0])
             w_int = qw.int().t().contiguous()  # (in, out) int8
-            w_scale = qw.scale.reshape(-1).to(torch.float32)
             # the column sums come from the codes, before any packing
             colsum = w_int.to(torch.int32).sum(0).to(torch.float32)
             bias = (qlinear.bias.detach().to(torch.float32) if qlinear.bias is not None
@@ -207,12 +219,13 @@ class WeightOnlyInt4InferenceLinear(nn.Module):
             qw = qlinear.quant_weight()
             if float(qw.bit_width) > 4.0:
                 raise ValueError("the weight-only int4 path needs bit_width <= 4")
+            w_scale = _weight_scale(qw, qw.value.shape[0])
             w_int = qw.int().t()  # (in, out)
             k, n = w_int.shape
             if k % 2:
                 raise ValueError("in_features must be even to pack int4")
             self.register_buffer("w_packed", pack_int4_rows(w_int).contiguous())
-            self.register_buffer("w_scale", qw.scale.reshape(-1).to(torch.float32))
+            self.register_buffer("w_scale", w_scale)
             self.register_buffer("bias", qlinear.bias.detach().to(torch.float32)
                                  if qlinear.bias is not None else None)
         self.out_features = n
@@ -249,9 +262,10 @@ class DynamicInt8InferenceLinear(nn.Module):
             qw = qlinear.quant_weight()
             if float(qw.bit_width) > 8.0:
                 raise ValueError("the int8 path needs bit_width <= 8")
+            w_scale = _weight_scale(qw, qw.value.shape[0])
             w_int = qw.int().t().contiguous()  # (in, out) int8
             self.register_buffer("w_int", w_int)
-            self.register_buffer("w_scale", qw.scale.reshape(-1).to(torch.float32))
+            self.register_buffer("w_scale", w_scale)
             self.register_buffer("bias", qlinear.bias.detach().to(torch.float32)
                                  if qlinear.bias is not None else None)
             self.register_buffer("unit", torch.ones((), device=w_int.device))
@@ -315,7 +329,7 @@ class Int8InferenceConv(nn.Module):
                 raise ValueError("the int8 path needs bit_width <= 8")
             w_int = qw.int()  # (O, C / groups, *kernel) int8
             out_ch = w_int.shape[0]
-            self.register_buffer("w_scale", qw.scale.reshape(-1).to(torch.float32))
+            self.register_buffer("w_scale", _weight_scale(qw, out_ch))
             self.register_buffer("w_int", w_int)
             self.register_buffer("bias", qconv.bias.detach().to(torch.float32)
                                  if qconv.bias is not None else None)
@@ -558,7 +572,11 @@ def convert_integer_inference(model: nn.Module) -> nn.Module:
     ``Int8InferenceLinear`` (frozen input grid, or the carried grid when it
     has no input quantizer; packed weights for W4A8); a QuantConv1d/2d with
     INT weights for ``Int8InferenceConv``. Other layers stay on the
-    fake-quant path."""
+    fake-quant path, and so does a layer whose twin refuses it
+    (``ValueError``: groupwise MX weights, a dynamic or missing grid where a
+    frozen one is needed, ...). The JAX package's linear twin flattens an
+    MX weight's expanded scale and fails on a shape (``TypeError``), which
+    its ``except`` does not catch; here the twin refuses it."""
     converted = []
     for path, mod in list(named_modules(model)):
         if any(path.startswith(p + ".") for p in converted):

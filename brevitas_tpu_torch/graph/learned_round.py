@@ -1,5 +1,5 @@
 """Learned weight rounding for PTQ (port of
-``brevitas_tpu/graph/learned_round.py``; ported: what GPTQ takes from it,
+``brevitas_tpu/graph/learned_round.py``; ported: what GPTQ and GPFQ take from it,
 ``eligible_for_learned_round``, ``_capture_inputs`` and
 ``freeze_weight_scale``). AdaRound's optimizer (``apply_learned_round``) is
 not ported yet.
@@ -23,14 +23,16 @@ from brevitas_tpu_torch.quant_tensor import QuantTensor
 
 
 def eligible_for_learned_round(layer) -> bool:
-    """INT weight quant with a zero zero-point on a linear or a conv. (The
-    JAX package also refuses decoupled, accumulator-aware and groupwise
-    weights, transposed convs among its layers; the port has none of
-    them.)"""
+    """INT weight quant with a zero zero-point on a linear or a conv, and
+    not groupwise: an MX weight's group scales bypass ``scaling``, which
+    ``freeze_weight_scale`` fixes. (The JAX package also refuses decoupled
+    and accumulator-aware weights and transposed convs; the port has none
+    of them.)"""
     if not isinstance(layer, (QuantLinear, _QuantConvNd)):
         return False
     cfg = layer.weight_quant.cfg
     return (layer.weight_quant.quant_type == QuantType.INT
+            and cfg.scaling_per_group is None
             and ZeroPointImplType(cfg.zero_point_impl) == ZeroPointImplType.ZERO)
 
 

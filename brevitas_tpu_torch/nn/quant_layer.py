@@ -132,8 +132,11 @@ class QuantWBIOL(QuantLayerMixin, nn.Module):
         if quant_input.bit_width is not None and quant_weight.bit_width is not None:
             output_bit_width = self.max_acc_bit_width(quant_input.bit_width,
                                                       quant_weight.bit_width)
-        if quant_input.scale is not None and quant_weight.scale is not None:
-            # a per-channel weight scale (out, 1, ...) takes the shape of the
+        if (quant_input.scale is not None and quant_weight.scale is not None
+                and self.weight_quant.cfg.scaling_per_group is None):
+            # groupwise (MX) weights have no one scale an output channel:
+            # the output carries no scale, as in the JAX package.
+            # A per-channel weight scale (out, 1, ...) takes the shape of the
             # output's channel axis: (out,) against a linear's (..., out)
             # output, (out, 1, 1) against a 2-D conv's (N, out, H, W)
             w_scale = quant_weight.scale

@@ -63,6 +63,10 @@ class QuantConfig:
     # per-token activation scaling: one scale per leading position, reduced
     # over the channel (last) axis; requires scaling_impl=DYNAMIC
     scaling_per_token: bool = False
+    # groupwise (microscaling, MX) weights: one scale per
+    # ``scaling_per_group`` consecutive reduction-axis elements of each
+    # output channel (OCP MX: groups of 32 with a power-of-two scale)
+    scaling_per_group: Optional[int] = None
     restrict_scaling: RestrictType = RestrictType.FP
     restrict_scaling_float_to_int: FloatToIntImpl = FloatToIntImpl.ROUND
     scaling_min_val: Optional[float] = None
@@ -84,3 +88,9 @@ class QuantConfig:
     def let(self, **overrides) -> "QuantConfig":
         """Functional update (``dataclasses.replace``)."""
         return dataclasses.replace(self, **overrides)
+
+    @property
+    def po2_int_scale(self) -> bool:
+        """A power-of-two restricted scale divides by 2 ** bits, so that it
+        stays a power of two."""
+        return RestrictType(self.restrict_scaling) == RestrictType.POWER_OF_TWO

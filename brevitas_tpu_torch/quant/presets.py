@@ -2,10 +2,11 @@
 
 Ported: the ones the port's models use, the binary and ternary constants,
 the shifted (asymmetric, zero-point) unsigned ones, the learned bit-width
-variants and the dynamic int8 activation quantizers. Compose variants with ``.let(...)``.
+variants, the dynamic int8 activation quantizers and the groupwise INT
+weights (MX and float-scaled). Compose variants with ``.let(...)``.
 """
 
-from brevitas_tpu_torch.core.restrict import FloatToIntImpl
+from brevitas_tpu_torch.core.restrict import FloatToIntImpl, RestrictType
 from brevitas_tpu_torch.core.stats import StatsOp
 from brevitas_tpu_torch.quant.config import (
     BitWidthImplType,
@@ -16,6 +17,7 @@ from brevitas_tpu_torch.quant.config import (
 )
 
 _INT = QuantConfig(quant_type=QuantType.INT, signed=True, narrow_range=False)
+_NARROW_INT = _INT.let(narrow_range=True)
 _UINT = _INT.let(signed=False)
 
 _MAX_STATS = dict(scaling_impl=ScalingImplType.STATS,
@@ -31,6 +33,8 @@ _PARAM_FROM_PERCENTILE_INTERVAL = dict(
     scaling_stats_op=StatsOp.PERCENTILE_INTERVAL,
     high_percentile_q=99.999, low_percentile_q=0.001,
     collect_stats_steps=300, scaling_min_val=1e-10)
+_PO2 = dict(restrict_scaling=RestrictType.POWER_OF_TWO,
+            restrict_scaling_float_to_int=FloatToIntImpl.CEIL)
 
 Int8WeightPerTensorFloat = _INT.let(narrow_range=True, bit_width=8, **_MAX_STATS)
 Int8WeightPerChannelFloat = Int8WeightPerTensorFloat.let(scaling_per_output_channel=True)
@@ -91,3 +95,11 @@ Int8DynamicActPerTensorFloat = _INT.let(
     bit_width=8, scaling_impl=ScalingImplType.DYNAMIC,
     scaling_stats_op=StatsOp.MAX, scaling_min_val=1e-10)
 Int8DynamicActPerTokenFloat = Int8DynamicActPerTensorFloat.let(scaling_per_token=True)
+
+# groupwise weights: one scale per 32 consecutive reduction-axis elements of
+# an output channel; OCP MX's INT elements take a power-of-two scale (the
+# MX float elements wait for the FLOAT quantizer)
+MXInt8Weight = _NARROW_INT.let(bit_width=8, scaling_per_group=32, **_MAX_STATS, **_PO2)
+MXInt4Weight = MXInt8Weight.let(bit_width=4)
+Int8WeightPerGroupFloat = _NARROW_INT.let(bit_width=8, scaling_per_group=32, **_MAX_STATS)
+Int4WeightPerGroupFloat = Int8WeightPerGroupFloat.let(bit_width=4)

@@ -12,7 +12,9 @@ learned PARAMETER, STATS (of the weight) and two-phase PARAMETER_FROM_STATS
 zero points, quantized onto the grid or not (``ZeroPoint``); every
 float-to-int rounding, STOCHASTIC_ROUND from a generator the quantizer
 holds; quant delay; the INT, BINARY, TERNARY and NONE weight quantizers,
-INT per-tensor or per output channel, and activation quantizers, INT
+INT per-tensor, per output channel or groupwise (``scaling_per_group``,
+the MX INT presets: one scale per run of reduction-axis elements of an
+output channel, expanded to the weight's shape), and activation quantizers, INT
 per-tensor or per channel, signed or unsigned, with the static grid of an
 INT one (``ActQuantizer.static_int_params``); the NONE bias quantizer and
 the INT one on the accumulator's grid (``IntBias``); the truncating
@@ -444,8 +446,9 @@ class _FloatToIntMixin:
 
 
 class ParameterQuantizer(_FloatToIntMixin, nn.Module):
-    """Weight-side quantizer: INT with per-tensor or per-output-channel
-    scaling, BINARY (``binary_sign(w) * scale``), TERNARY, or NONE.
+    """Weight-side quantizer: INT with per-tensor, per-output-channel or
+    groupwise (``scaling_per_group``, MX) scaling, BINARY (``binary_sign(w)
+    * scale``), TERNARY, or NONE.
     ``channel_axis`` is the weight's output-channel axis: 0 for the port's
     (out, in) linear weight and for an embedding table's rows (the JAX
     package's (in, out) linear weight has it at 1)."""
@@ -468,11 +471,63 @@ class ParameterQuantizer(_FloatToIntMixin, nn.Module):
             weight_init, self.per_channel, channel_axis))
         self.zero_point = ZeroPoint(cfg, bshape)
         self.delay = QuantDelay(cfg.quant_delay_steps)
+        self.group_scaling = None
+        if cfg.scaling_per_group is not None:
+            self.group_scaling = self._build_group_scaling(weight_init)
+
+    def _build_group_scaling(self, w: torch.Tensor) -> "StatsScaling":
+        """Groupwise (MX) scaling: one statistic per ``scaling_per_group``
+        consecutive elements of each output channel's reduction axis."""
+        cfg = self.cfg
+        if self.quant_type != QuantType.INT:
+            raise ValueError("groupwise quant supports INT elements (FLOAT ones wait for "
+                             "the FLOAT quantizer)")
+        if self.per_channel:
+            raise ValueError("scaling_per_group already implies per-output-channel grouping")
+        if ZeroPointImplType(cfg.zero_point_impl) != ZeroPointImplType.ZERO:
+            raise ValueError("groupwise quant is symmetric-only")
+        if ScalingImplType(cfg.scaling_impl) != ScalingImplType.STATS:
+            raise ValueError("groupwise scales are weight statistics: use scaling_impl=STATS")
+        if self.channel_axis % w.ndim != 0:
+            raise ValueError("groupwise quant expects the output channel axis first "
+                             "(the port's (out, in, *kernel) weights)")
+        size = int(cfg.scaling_per_group)
+        red = w.numel() // w.shape[0]
+        if red % size != 0:
+            raise ValueError(f"reduction size {red} is not divisible by the group size {size}")
+        stats_fn = S.stats_fn(cfg.scaling_stats_op, high_percentile_q=cfg.high_percentile_q)
+        return StatsScaling(cfg, stats_fn, (w.shape[0], red // size, 1))
+
+    def _groupwise_quant(self, w: torch.Tensor) -> QuantTensor:
+        """The groups are runs of ``scaling_per_group`` elements along each
+        output channel's reduction axis in the JAX package's element order:
+        its HWIO conv kernel reduces over (kh, kw, I), so the port's
+        (O, I, kh, kw) weight moves I last first (a linear's (out, in) is
+        already in that order). The scale comes back expanded to the
+        weight's shape, as in the JAX package."""
+        cfg = self.cfg
+        size = int(cfg.scaling_per_group)
+        wr = torch.movedim(w, 1, -1)
+        moved = wr.shape
+        blocks = wr.reshape(w.shape[0], -1, size)  # (O, red / G, G)
+        bit_width = self.bit_width_impl()
+        # a power-of-two scale is 2 to an integer power: exact in float32
+        scale = Qf.rescaling_scale(self.group_scaling(blocks.reshape(-1, size)), bit_width,
+                                   signed=cfg.signed, narrow_range=cfg.narrow_range,
+                                   po2_int_scale=cfg.po2_int_scale)
+        y = Qf.int_quant(blocks, scale, 0.0, bit_width, signed=cfg.signed,
+                         narrow_range=cfg.narrow_range, float_to_int=self._float_to_int,
+                         clamp_fn=tensor_clamp_ste if cfg.clamp_ste else tensor_clamp)
+        y = torch.movedim(y.reshape(moved), -1, 1)
+        full_scale = torch.movedim(scale.expand(blocks.shape).reshape(moved), -1, 1)
+        return QuantTensor(self.delay(w, y), full_scale, 0.0, bit_width, signed=True)
 
     def forward(self, w: torch.Tensor) -> QuantTensor:
         cfg = self.cfg
         if self.quant_type == QuantType.NONE or self.disable_quant:
             return QuantTensor(w)
+        if self.group_scaling is not None:
+            return self._groupwise_quant(w)
         view = stats_view(w, self.per_channel, self.channel_axis)
         if self.quant_type == QuantType.BINARY:
             scale = self.scaling(view)
@@ -484,7 +539,7 @@ class ParameterQuantizer(_FloatToIntMixin, nn.Module):
             return QuantTensor(self.delay(w, y), scale, 0.0, bit_width, signed=True)
         bit_width = self.bit_width_impl()
         scale = Qf.rescaling_scale(self.scaling(view), bit_width, signed=cfg.signed,
-                                   narrow_range=cfg.narrow_range)
+                                   narrow_range=cfg.narrow_range, po2_int_scale=cfg.po2_int_scale)
         zp = self.zero_point(view, scale, bit_width)
         y = int_fake_quant(w, scale, zp, bit_width, cfg, self._float_to_int)
         return QuantTensor(self.delay(w, y), scale, zp, bit_width, signed=cfg.signed)
@@ -568,20 +623,20 @@ class ActQuantizer(_FloatToIntMixin, nn.Module):
             return None
         bit_width = self.bit_width_impl()
         scale = Qf.rescaling_scale(self.scaling(None), bit_width, signed=cfg.signed,
-                                   narrow_range=cfg.narrow_range)
+                                   narrow_range=cfg.narrow_range, po2_int_scale=cfg.po2_int_scale)
         return scale, bit_width
 
     def _int_scale(self, view: torch.Tensor, bit_width):
         cfg = self.cfg
         return Qf.rescaling_scale(self.scaling(view), bit_width, signed=cfg.signed,
-                                  narrow_range=cfg.narrow_range)
+                                  narrow_range=cfg.narrow_range, po2_int_scale=cfg.po2_int_scale)
 
     def _int_scale_of(self, x: torch.Tensor, view: torch.Tensor, bit_width):
         if not self.per_token:
             return self._int_scale(view, bit_width)
         cfg = self.cfg
         return Qf.rescaling_scale(self._token_threshold(x), bit_width, signed=cfg.signed,
-                                  narrow_range=cfg.narrow_range)
+                                  narrow_range=cfg.narrow_range, po2_int_scale=cfg.po2_int_scale)
 
     def forward(self, x: torch.Tensor) -> QuantTensor:
         cfg = self.cfg

@@ -84,7 +84,14 @@ Phases; any failure exits non-zero and prints no result:
              below; the JAX tests' bounds on bits per character (a: quant
              and served below float + 0.1, served within 1e-3 of quant; b:
              quant below float + 1.5); each stage's host ms, the GPTQ row
-             steps, ms a served forward and its device busy time.
+             steps, ms a served forward and its device busy time. Runs
+             (c) --arch gpt --rotate --awq --gpfq --convert-int (37
+             Int8InferenceLinear twins, 56,320 GPFQ row steps) and (d)
+             --arch gpt --mx --gptq --convert-int (MX weights: no GPTQ
+             step, no twin, served bpc equal to quant bpc; every linear's
+             MX weight codes and scales equal a CPU copy's) at the same
+             width, checked the same way (quant and served below float +
+             0.1).
 11. lstm_kernels - quant_lstm_cell's forward, its stage-table build and
              its backward at the QuantLSTM QAT leg's shape (B 64, H 512),
              unaligned ones ((3, 100), (3, 101)) and (1024, 512), with sa and
@@ -1446,31 +1453,65 @@ def phase_serve_decode(dev) -> dict:
 
 
 # examples.llm_ptq at the width of bench.py's Llama legs (bench.py:577): dim
-# 1024, depth 6, 16 heads (SwiGLU width 2,752), at the CLI's batch (32),
-# sequence (64), calibration batches (4), bit width (8) and float training
-# steps (300)
-LLM_PTQ_ARGV = ["--arch", "llama", "--dim", "1024", "--depth", "6", "--heads", "16"]
-LLM_PTQ_RUNS = {"dynamic_gptq": ["--gptq", "--dynamic-act", "--convert-int"],
-                "static_kv8": ["--convert-int", "--kv-bits", "8"]}
+# 1024, depth 6, 16 heads (Llama's SwiGLU width 2,752, gpt's MLP 4,096), at
+# the CLI's batch (32), sequence (64), calibration batches (4), bit width (8)
+# and float training steps (300); each run names its arch
+LLM_PTQ_ARGV = ["--dim", "1024", "--depth", "6", "--heads", "16"]
+LLM_PTQ_RUNS = {"dynamic_gptq": ["--arch", "llama", "--gptq", "--dynamic-act", "--convert-int"],
+                "static_kv8": ["--arch", "llama", "--convert-int", "--kv-bits", "8"],
+                "gpt_rotate_awq_gpfq": ["--arch", "gpt", "--rotate", "--awq", "--gpfq",
+                                        "--convert-int"],
+                "gpt_mx": ["--arch", "gpt", "--mx", "--gptq", "--convert-int"]}
 LLM_PTQ_TEST_BATCHES = 2   # main scores bits per character on 2 held-out batches
-LLM_PTQ_LINEARS = 6 * 7 + 1  # 7 linears a block, and the head
+LLM_PTQ_CALIB_BATCHES = 4
+# the linears: Llama's 7 a block (q, k, v, o, gate, up, down), gpt's 6 (q,
+# k, v, out, fc1, fc2), and the head
+LLM_PTQ_LINEARS = {"dynamic_gptq": 6 * 7 + 1, "static_kv8": 6 * 7 + 1,
+                   "gpt_rotate_awq_gpfq": 6 * 6 + 1, "gpt_mx": 6 * 6 + 1}
+_GPT = LLM_PTQ_LINEARS["gpt_rotate_awq_gpfq"]
 # fake_quant launches over main, one a per-tensor quantizer call: the traced
-# forward of the region search (in training mode, its quantizers collecting);
-# in run (b) also the two fake-quant scoring forwards and the conversion's
-# probe of each quantizer it freezes (a (1, 1) call). Run (a) has the
-# linears' 43 input quantizers; run (b) adds q/k/v/probs, 11 a block, 67 in
-# all
-LLM_PTQ_FQ = {"dynamic_gptq": LLM_PTQ_LINEARS, "static_kv8": (6 * 11 + 1) * 4}
+# forward of the region search (in training mode, its quantizers
+# collecting); the fake-quant scoring forwards (2 batches); the conversion's
+# probe of each quantizer it freezes (a (1, 1) call); and GPFQ's capture
+# forwards, each layer's 4 calibration batches through every input
+# quantizer, and that layer's own once more on what it captured. (a) has
+# the linears' 43 input quantizers, then dynamic ones; (b) adds q/k/v/probs,
+# 11 a block, 67 in all; (c) the 37 linears' static inputs, and the
+# conversion probes each block's 4 projections twice (the attention twin
+# builds their twins, then refuses its unquantized core); (d)'s MX linears
+# refuse their twin before its probe, so the served scoring forwards are
+# fake-quant too
+LLM_PTQ_FQ = {"dynamic_gptq": 6 * 7 + 1, "static_kv8": (6 * 11 + 1) * 4,
+              "gpt_rotate_awq_gpfq": _GPT + _GPT * LLM_PTQ_CALIB_BATCHES * (_GPT + 1)
+              + LLM_PTQ_TEST_BATCHES * _GPT + _GPT + 6 * 4,
+              "gpt_mx": _GPT + 2 * LLM_PTQ_TEST_BATCHES * _GPT}
+# the serving twins each run leaves, and the weight solver's row steps:
+# GPTQ at Llama's width 6 x (4 x 1,024 + 2 x 1,024 + 2,752) + 1,024;
+# GPFQ at gpt's 6 x (5 x 1,024 + 4,096) + 1,024; GPTQ skips MX weights
+LLM_PTQ_TWINS = {"dynamic_gptq": {"DynamicInt8InferenceLinear": 6 * 7 + 1},
+                 "static_kv8": {"Int8InferenceLinear": 6 * 7 + 1, "Int8InferenceAttention": 6},
+                 "gpt_rotate_awq_gpfq": {"Int8InferenceLinear": _GPT},
+                 "gpt_mx": {}}
+LLM_PTQ_STEPS = {"dynamic_gptq": ("gptq_steps", 6 * (6 * 1024 + 2752) + 1024),
+                 "static_kv8": ("gptq_steps", 0),
+                 "gpt_rotate_awq_gpfq": ("gpfq_steps", 6 * (5 * 1024 + 4096) + 1024),
+                 "gpt_mx": ("gptq_steps", 0)}
 LLM_PTQ_CHECK_SEQS = 4     # sequences of a served batch held against a CPU copy
 # bpc over float, the JAX tests'. At this width the model memorizes the
 # corpus (float bpc about 0.046), so these bounds are loose; the two below,
 # from the bpc measured on an H100 (quant 1.5e-5 to 2.2e-5 over float,
-# served within 4.8e-6 of quant in both runs), are the ones that can fail
-LLM_PTQ_BOUNDS = {"dynamic_gptq": 0.1, "static_kv8": 1.5}
-LLM_PTQ_QUANT_OVER_FLOAT = 1e-3  # both runs
+# served within 4.8e-6 of quant in (a) and (b)), are the ones that can
+# fail. (c) and (d) were given the same bounds before their first run on
+# the card: 8-bit weights after rotation, AWQ and GPFQ, or MX groups of 32,
+# should cost the memorized corpus no more than (a)'s GPTQ did; (c)'s static
+# twins are (b)'s, and (d) serves its fake-quant model itself (0)
+LLM_PTQ_BOUNDS = {"dynamic_gptq": 0.1, "static_kv8": 1.5, "gpt_rotate_awq_gpfq": 0.1,
+                  "gpt_mx": 0.1}
+LLM_PTQ_QUANT_OVER_FLOAT = 1e-3  # every run
 # |served - quant|: run (a)'s dynamic twin is numerically the fake-quant
-# model (the JAX twin's docstring); run (b)'s static twins as measured
-LLM_PTQ_SERVED_VS_QUANT = {"dynamic_gptq": 1e-3, "static_kv8": 1e-4}
+# model (the JAX twin's docstring); the static twins as measured
+LLM_PTQ_SERVED_VS_QUANT = {"dynamic_gptq": 1e-3, "static_kv8": 1e-4,
+                           "gpt_rotate_awq_gpfq": 1e-4, "gpt_mx": 0.0}
 
 
 @contextlib.contextmanager
@@ -1501,14 +1542,29 @@ def check_llm_twins(model, ids: torch.Tensor, what: str) -> int:
     copy's logits fed the card's attention outputs, bit for bit; and the
     free-running copy's logits (compare_logits: a float attention core sums
     in another order on the CPU). The first LLM_PTQ_CHECK_SEQS sequences.
-    Returns the twins checked."""
+    A QuantLinear no twin took (an MX one) serves its fake-quant forward:
+    its weight codes and scales equal the CPU copy's bit for bit. Returns
+    the twins checked."""
     from brevitas_tpu_torch.graph.convert_int import (
         DynamicInt8InferenceLinear,
         Int8InferenceLinear,
     )
+    from brevitas_tpu_torch.nn import QuantLinear
 
     n = LLM_PTQ_CHECK_SEQS
     cpu_model = copy.deepcopy(model).to("cpu")
+    fake = [name for name, mod in model.named_modules() if isinstance(mod, QuantLinear)]
+    with torch.no_grad():
+        for name in fake:
+            got = model.get_submodule(name).quant_weight()
+            want = cpu_model.get_submodule(name).quant_weight()
+            if not (torch.equal(got.int().cpu(), want.int())
+                    and torch.equal(got.scale.cpu(), want.scale)):
+                raise AssertionError(f"{what}: {name}'s weight codes or scales differ from "
+                                     "the CPU copy's")
+    if fake:
+        print(f"[{what}] {len(fake)} fake-quant linears: weight codes and scales of the CPU "
+              "copy equal the card's bit for bit")
     seen = []
     hooks = [mod.register_forward_hook(
         lambda mod, args, out, name=name: seen.append(
@@ -1545,17 +1601,20 @@ def check_llm_twins(model, ids: torch.Tensor, what: str) -> int:
 
 def phase_llm_ptq(dev, run: str) -> dict:
     """examples.llm_ptq.main on the card at full width (LLM_PTQ_ARGV), run
-    (a) ``--gptq --dynamic-act --convert-int`` (every linear a
-    DynamicInt8InferenceLinear) or run (b) ``--convert-int --kv-bits 8``
-    (SmoothQuant, static calibration, the attention core on int8_attention):
-    the launches over main (its two served scoring forwards, and fake_quant
-    as LLM_PTQ_FQ says) and over one served forward of a held-out batch,
-    asserted;
-    each int8_matmul call of that forward against int8_matmul_reference on
-    the same codes, bit for bit; the twins against a CPU copy
-    (check_llm_twins); the JAX tests' bpc bounds and the measured ones
-    (LLM_PTQ_QUANT_OVER_FLOAT, LLM_PTQ_SERVED_VS_QUANT); each stage's host ms, the
-    GPTQ row steps, ms a served forward and its device busy time."""
+    (a) ``--arch llama --gptq --dynamic-act --convert-int`` (every linear a
+    DynamicInt8InferenceLinear), (b) ``--arch llama --convert-int --kv-bits
+    8`` (SmoothQuant, static calibration, the attention core on
+    int8_attention), (c) ``--arch gpt --rotate --awq --gpfq --convert-int``
+    (every linear an Int8InferenceLinear) or (d) ``--arch gpt --mx --gptq
+    --convert-int`` (MX weights: GPTQ skips them, no twin takes them): the
+    twins (LLM_PTQ_TWINS), the solver's row steps (LLM_PTQ_STEPS) and the
+    launches over main (its two served scoring forwards, and fake_quant as
+    LLM_PTQ_FQ says) and over one served forward of a held-out batch,
+    asserted; each int8_matmul call of that forward against
+    int8_matmul_reference on the same codes, bit for bit; the twins against
+    a CPU copy (check_llm_twins); the JAX tests' bpc bounds and the
+    measured ones (LLM_PTQ_QUANT_OVER_FLOAT, LLM_PTQ_SERVED_VS_QUANT); each
+    stage's host ms, ms a served forward and its device busy time."""
     from brevitas_tpu_torch.examples import llm_ptq
     from brevitas_tpu_torch.graph.convert_int import (
         DynamicInt8InferenceLinear,
@@ -1565,7 +1624,12 @@ def phase_llm_ptq(dev, run: str) -> dict:
     from brevitas_tpu_torch.kernels import int8_matmul_reference
 
     what = f"llm_ptq_{run}"
-    dynamic = run == "dynamic_gptq"
+    linears = LLM_PTQ_LINEARS[run]
+    want_twins = dict.fromkeys(("DynamicInt8InferenceLinear", "Int8InferenceLinear",
+                                "Int8InferenceAttention"), 0)
+    want_twins.update(LLM_PTQ_TWINS[run])
+    served_linears = want_twins["DynamicInt8InferenceLinear"] + want_twins["Int8InferenceLinear"]
+    attn = want_twins["Int8InferenceAttention"]
     keep = {}
     _reset_launch_counts()
     t0 = time.perf_counter()
@@ -1574,22 +1638,20 @@ def phase_llm_ptq(dev, run: str) -> dict:
     main_s = time.perf_counter() - t0
     counts = _launch_counts()
     _record_path(what, counts)
-    attn = 0 if dynamic else 6
     expected = dict.fromkeys(counts, 0)
-    expected.update(int8_matmul=LLM_PTQ_LINEARS * LLM_PTQ_TEST_BATCHES,
+    expected.update(int8_matmul=served_linears * LLM_PTQ_TEST_BATCHES,
                     int8_attention=attn * LLM_PTQ_TEST_BATCHES,
                     fake_quant=LLM_PTQ_FQ[run])
     print(f"[{what}] main {main_s:.1f} s ({CARD[0]}): launches {counts}")
     if counts != expected:
         raise AssertionError(f"{what}: expected launches {expected} over main")
+    steps_key, want_steps = LLM_PTQ_STEPS[run]
+    if result[steps_key] != want_steps:
+        raise AssertionError(f"{what}: {result[steps_key]} {steps_key}, expected {want_steps}")
 
     model, test_x = keep["model"], keep["test_x"]
     twins = {cls.__name__: sum(isinstance(m, cls) for m in model.modules())
              for cls in (DynamicInt8InferenceLinear, Int8InferenceLinear, Int8InferenceAttention)}
-    want_twins = ({"DynamicInt8InferenceLinear": LLM_PTQ_LINEARS, "Int8InferenceLinear": 0,
-                   "Int8InferenceAttention": 0} if dynamic else
-                  {"DynamicInt8InferenceLinear": 0, "Int8InferenceLinear": LLM_PTQ_LINEARS,
-                   "Int8InferenceAttention": 6})
     if twins != want_twins:
         raise AssertionError(f"{what}: serving twins {twins}, expected {want_twins}")
 
@@ -1601,7 +1663,9 @@ def phase_llm_ptq(dev, run: str) -> dict:
     torch.cuda.synchronize()
     per_forward = _launch_counts()
     want_fwd = dict.fromkeys(per_forward, 0)
-    want_fwd.update(int8_matmul=LLM_PTQ_LINEARS, int8_attention=attn)
+    # a linear no twin took serves its fake-quant forward: its input quantizer
+    want_fwd.update(int8_matmul=served_linears, int8_attention=attn,
+                    fake_quant=0 if served_linears else linears)
     print(f"[{what}] one served forward of {tuple(ids.shape)}: launches {per_forward}")
     if per_forward != want_fwd:
         raise AssertionError(f"{what}: expected launches {want_fwd} a served forward")
@@ -1623,7 +1687,9 @@ def phase_llm_ptq(dev, run: str) -> dict:
           f"served within {LLM_PTQ_SERVED_VS_QUANT[run]} of quant)")
     if not all(np.isfinite(v) for v in (fb, qb, sb)):
         raise AssertionError(f"{what}: bits per character not finite")
-    if qb >= fb + bound or (dynamic and sb >= fb + bound):
+    # the JAX tests bound the served bpc of every run but (b), whose test
+    # (tests/test_llama.py's CLI smoke) bounds only the fake-quant one
+    if qb >= fb + bound or (run != "static_kv8" and sb >= fb + bound):
         raise AssertionError(f"{what}: bits per character out of the JAX tests' bound")
     if abs(qb - fb) > LLM_PTQ_QUANT_OVER_FLOAT:
         raise AssertionError(f"{what}: fake-quant {qb} and float {fb} bpc differ")
@@ -1643,13 +1709,13 @@ def phase_llm_ptq(dev, run: str) -> dict:
             times.append((time.perf_counter() - t1) * 1e3)
     ms = statistics.median(times)
     print(f"[{what}] stages (host ms, {CARD[0]}): {result['stage_ms']}; GPTQ row steps "
-          f"{result['gptq_steps']}; {ms:.3f} ms a served forward of {tuple(ids.shape)} (median "
-          "of 5, host clock with synchronize)")
+          f"{result['gptq_steps']}, GPFQ row steps {result['gpfq_steps']}; {ms:.3f} ms a served "
+          f"forward of {tuple(ids.shape)} (median of 5, host clock with synchronize)")
     out = {"card": CARD[0], "bpc": {"float": fb, "quant": qb, "served": sb},
            "launches_over_main": counts, "launches_per_forward": per_forward,
            "stage_ms": result["stage_ms"], "gptq_steps": result["gptq_steps"],
-           "regions": result["regions"], "main_s": main_s, "ms_per_forward": ms,
-           "twins_checked": checked}
+           "gpfq_steps": result["gpfq_steps"], "regions": result["regions"],
+           "main_s": main_s, "ms_per_forward": ms, "twins_checked": checked}
     out["profile"] = profile_steps(forward, what, "served forward")
     return out
 

@@ -4,7 +4,10 @@
 per-token int8 activation quantizers, ``DynamicInt8InferenceLinear``, the
 traced graph and the SmoothQuant regions it gives, ``apply_act_equalization``,
 GPTQ (``_gptq_solve`` and ``apply_gptq``), and the flow as a whole on a
-tiny QuantLlama trained by JAX and carried across with ``load_jax_state``.
+tiny QuantLlama and a tiny QuantTransformer (gpt, ``main``'s default
+arch), each trained by JAX and carried across with ``load_jax_state``.
+``main``'s other flags are held to JAX in
+``tests/test_torch_port_llm_ptq_flags.py``.
 Every JAX reference is computed once for the module, eagerly (the quantizer
 and twin references: under ``jit`` XLA turns a scale's division by a
 constant into a reciprocal multiply, ROADMAP S13); GPTQ's solve runs under
@@ -29,7 +32,9 @@ Tolerances, each with its reason:
   the rows after it;
 - ``apply_gptq`` from JAX's own state, and the flow as a whole: each
   QuantLinear's weight codes equal JAX's except in at most 1 % of a
-  layer, each by one step, for the reason above: a layer whose input came
+  layer, each by one step (two in gpt's dynamic flow, whose SmoothQuant
+  factors come out 1-3 ulps from JAX's: GPTQ carries one fc2 flip into
+  the rows after it), for the reason above: a layer whose input came
   through the attention or the MLP's SiLU (float32 exp and softmax, other
   last bits in XLA and torch) gets a Hessian with other last bits. None
   differs here (the share is printed). JAX's GPTQ moves over 20 % of
@@ -37,7 +42,8 @@ Tolerances, each with its reason:
   fails, and so did one that took the layers in another order (the order
   of an ``nnx.clone``, by name: 2.8 % of ``down_proj``'s codes differed);
 - the flow's bits per character, fake-quant and served, within 1e-4 of
-  JAX's: the gaps measured are at most 1.1e-6 (the float model's 1.0e-6,
+  JAX's: the gaps measured are at most 1.1e-6 on llama and 4.3e-5 on gpt
+  (its dynamic flow's codes above; the float model's 1.0e-6,
   from the two packages' float32 sums), and 1e-4 is far below what the
   quantization itself moves (5e-4 to 8e-4 here).
 """
@@ -104,7 +110,16 @@ FLOW = dict(train_steps=12, batch=8, seq_len=16, calib_batches=1)
 # JAX's in tests/test_torch_port_llama.py)
 FLOWS = {"dynamic_gptq": dict(dynamic_act=True, gptq=True, kv_bits=0),
          "static": dict(dynamic_act=False, gptq=False, kv_bits=0)}
+# each flow on each architecture: QuantLlama, and QuantTransformer (gpt,
+# main's default)
+FLOW_CASES = {"dynamic_gptq": ("llama", "dynamic_gptq"), "static": ("llama", "static"),
+              "gpt_dynamic_gptq": ("gpt", "dynamic_gptq"), "gpt_static": ("gpt", "static")}
 GPTQ_FLIP_SHARE = 0.01
+# gpt's dynamic flow: SmoothQuant's factors come out 1-3 ulps from JAX's
+# (S1), the weights after it up to 4; from JAX's own state GPTQ gives JAX's
+# codes, but in the flow one fc2 code flips at a .5 boundary and GPTQ
+# carries it into the rows after it, one of them by two steps
+GPT_FLOW_MAX_STEP = 2
 BPC_TOL = 1e-4
 SQ_S_ULPS, SQ_W_ULPS = 4, 6
 
@@ -120,7 +135,8 @@ def jax_state_arrays(model) -> dict:
 
 def _flow_args(**kw) -> argparse.Namespace:
     base = dict(bit_width=8, calib_batches=FLOW["calib_batches"], no_smoothquant=False,
-                smoothquant_alpha=0.5, dynamic_act=False, gptq=False, kv_bits=0)
+                smoothquant_alpha=0.5, dynamic_act=False, gptq=False, kv_bits=0, mx=False,
+                rotate=False, awq=False, gpfq=False)
     base.update(kw)
     return argparse.Namespace(**base)
 
@@ -200,7 +216,8 @@ def jax_post_training(model, args, calib, record):
                              lambda n: n.path, jax_classify)
     # main's smoothquant_regions(model, sample_tokens), its graph kept
     regions = jax_regions(model, calib[0][:1], graph=graph)
-    record["hand"] = jax_llama_regions(model)
+    record["hand"] = (jax_llama_regions(model) if isinstance(model, JaxLlama)
+                      else jax_tf_regions(model))
     record["before_sq"] = jax_state_arrays(model)
     s = JG.apply_act_equalization(model, regions, calib, alpha=args.smoothquant_alpha,
                                   forward_fn=forward)
@@ -274,14 +291,20 @@ def _gptq_problem():
             "nmax": float(nmax), "Wn": _np(Wn)}
 
 
-def _jax_flows():
-    """JAX trains a tiny float QuantLlama, then runs each flow of ``main``
-    on a copy of it."""
+def _jax_model(arch, vocab, seed=0):
+    kw = dict(vocab_size=vocab, weight_quant=jp.NoneWeightQuant, act_quant=jp.NoneActQuant,
+              uact_quant=jp.NoneActQuant, rngs=nnx.Rngs(seed))
+    if arch == "llama":
+        return JaxLlama(**kw, **TINY)
+    return JaxTransformer(max_len=FLOW["seq_len"], **kw, **TINY_GPT)
+
+
+def _jax_flows(arch="llama"):
+    """JAX trains a tiny float model of ``arch``, then runs each flow of
+    ``main`` on a copy of it."""
     xs, ys, vocab = jax_batches(_CORPUS, FLOW["seq_len"], FLOW["batch"],
                                 FLOW["train_steps"] + FLOW["calib_batches"] + 2, 0)
-    kw = dict(vocab_size=vocab, weight_quant=jp.NoneWeightQuant, act_quant=jp.NoneActQuant,
-              uact_quant=jp.NoneActQuant, **TINY)
-    model = JaxLlama(rngs=nnx.Rngs(0), **kw)
+    model = _jax_model(arch, vocab)
     n = FLOW["train_steps"]
     jax_llm_ptq._train_float(model, xs[:n], ys[:n], 1e-3)
     jax_eval_mode(model)
@@ -293,7 +316,7 @@ def _jax_flows():
     for name, flow in FLOWS.items():
         # a new model with the trained state, not nnx.clone: a clone lists
         # its submodules by name, and GPTQ solves the layers in that order
-        m = JaxLlama(rngs=nnx.Rngs(0), **kw)
+        m = _jax_model(arch, vocab)
         nnx.update(m, nnx.state(model))
         args = _flow_args(**flow)
         jax_quantize(m, args)
@@ -306,18 +329,6 @@ def _jax_flows():
                               if "Inference" in type(mod).__name__)
         rec["served_bpc"] = jax_llm_ptq.bits_per_char(m, test_x, test_y)
     return out
-
-
-def _jax_gpt_graph(vocab, ids):
-    """The tiny QuantTransformer as ``main`` quantizes it, traced."""
-    m = JaxTransformer(max_len=FLOW["seq_len"], vocab_size=vocab, weight_quant=jp.NoneWeightQuant,
-                       act_quant=jp.NoneActQuant, uact_quant=jp.NoneActQuant, rngs=nnx.Rngs(1),
-                       **TINY_GPT)
-    jax_quantize(m, _flow_args())
-    g = jax_trace(m, ids)
-    return {"regions": jax_regions(m, ids, graph=g), "hand": jax_tf_regions(m),
-            "reach": _reach(g.nodes, lambda n: n.kind == "module", lambda n: n.succs,
-                            lambda n: n.path, jax_classify)}
 
 
 @pytest.fixture(scope="module")
@@ -333,9 +344,11 @@ def jax_ref():
         ref["twins"][case] = _jax_twin(case)
     ref["gptq"] = _gptq_problem()
     ref["flows"] = flows = _jax_flows()
+    ref["gpt_flows"] = _jax_flows("gpt")
     ref["ids"] = flows["calib"][0][:1]
-    ref["graphs"] = {"llama": flows["dynamic_gptq"],
-                     "gpt": _jax_gpt_graph(flows["vocab"], jnp.asarray(ref["ids"]))}
+    # the traced graph, its regions and the hand lists, as each arch's
+    # dynamic flow recorded them (the graph does not depend on the weights)
+    ref["graphs"] = {"llama": flows["dynamic_gptq"], "gpt": ref["gpt_flows"]["dynamic_gptq"]}
     return ref
 
 
@@ -621,17 +634,25 @@ def test_gptq_conv_beats_nearest(groups):
 # -- the flow as a whole -----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("flow", list(FLOWS))
-def test_flow_matches_jax(jax_ref, flow):
-    ref = jax_ref["flows"]
+def _port_model(arch, vocab):
+    kw = dict(device="cpu", vocab_size=vocab, weight_quant=presets.NoneWeightQuant,
+              act_quant=presets.NoneActQuant, uact_quant=presets.NoneActQuant)
+    if arch == "llama":
+        return QuantLlama(**kw, **TINY)
+    return QuantTransformer(max_len=FLOW["seq_len"], **kw, **TINY_GPT)
+
+
+@pytest.mark.parametrize("case", list(FLOW_CASES))
+def test_flow_matches_jax(jax_ref, case):
+    arch, flow = FLOW_CASES[case]
+    ref = jax_ref["flows" if arch == "llama" else "gpt_flows"]
     xs, ys, vocab = _batches(_CORPUS, FLOW["seq_len"], FLOW["batch"],
                              FLOW["train_steps"] + FLOW["calib_batches"] + 2, 0)
     assert vocab == ref["vocab"]
     n = FLOW["train_steps"]
     calib = list(xs[n:n + FLOW["calib_batches"]])
     test_x, test_y = xs[n + FLOW["calib_batches"]:], ys[n + FLOW["calib_batches"]:]
-    m = QuantLlama(device="cpu", vocab_size=vocab, weight_quant=presets.NoneWeightQuant,
-                   act_quant=presets.NoneActQuant, uact_quant=presets.NoneActQuant, **TINY)
+    m = _port_model(arch, vocab)
     load_jax_state(m, ref["float_state"]).eval()
     float_bpc = llm_ptq.bits_per_char(m, test_x, test_y)
     args = _flow_args(**FLOWS[flow])
@@ -643,7 +664,7 @@ def test_flow_matches_jax(jax_ref, flow):
     PG.convert_integer_inference(m)
     served_bpc = llm_ptq.bits_per_char(m, test_x, test_y)
     want = ref[flow]
-    print(f"{flow}: float {float_bpc} / {ref['float_bpc']}, quant {quant_bpc} / "
+    print(f"{case}: float {float_bpc} / {ref['float_bpc']}, quant {quant_bpc} / "
           f"{want['quant_bpc']}, served {served_bpc} / {want['served_bpc']} (port / JAX)")
     assert regions == [(list(s), list(k)) for s, k in want["regions"]]
     kinds = sorted(type(mod).__name__ for mod in m.modules() if "Inference" in type(mod).__name__)
@@ -651,15 +672,16 @@ def test_flow_matches_jax(jax_ref, flow):
     # the weight codes layer by layer: GPTQ's inputs (captured with the
     # layers before already rounded), its Hessian, the frozen scale, the
     # layer order and the write-back all show here
-    _assert_codes_close(codes, want["codes"], flow)
+    _assert_codes_close(codes, want["codes"], case, GPT_FLOW_MAX_STEP if arch == "gpt" else 1)
     assert abs(float_bpc - ref["float_bpc"]) < 1e-4
     assert abs(quant_bpc - want["quant_bpc"]) < BPC_TOL
     assert abs(served_bpc - want["served_bpc"]) < BPC_TOL
 
 
-def _assert_codes_close(got: dict, want: dict, what: str) -> None:
+def _assert_codes_close(got: dict, want: dict, what: str, max_step: int = 1) -> None:
     """Weight codes layer by layer: at most ``GPTQ_FLIP_SHARE`` of a
-    layer's differ, each by one step (a flip at a .5 boundary)."""
+    layer's differ, each by one step (a flip at a .5 boundary), or by
+    ``max_step`` where GPTQ carries a flip into the rows after it."""
     assert sorted(got) == sorted(want)
     diff = {p: got[p].astype(np.int64) - want[p].astype(np.int64) for p in got}
     shares = {p: float(np.mean(d != 0)) for p, d in diff.items()}
@@ -668,7 +690,7 @@ def _assert_codes_close(got: dict, want: dict, what: str) -> None:
     print(f"{what}: weight codes that differ from JAX's: {total:.4%} of all, "
           f"worst layer {max(shares.values()):.4%}")
     assert max(shares.values()) <= GPTQ_FLIP_SHARE, shares
-    assert all(int(np.abs(d).max(initial=0)) <= 1 for d in diff.values())
+    assert all(int(np.abs(d).max(initial=0)) <= max_step for d in diff.values())
 
 
 def test_apply_gptq_matches_jax_from_its_state(jax_ref):
@@ -686,6 +708,21 @@ def test_apply_gptq_matches_jax_from_its_state(jax_ref):
     report = PG.apply_gptq(m, calib, forward_fn=lambda mm, b: mm(b, causal=True))
     assert list(report) == list(want["codes"])  # every linear, in JAX's order
     _assert_codes_close(port_weight_codes(m), want["codes"], "apply_gptq")
+
+
+def test_apply_gptq_matches_jax_from_its_state_gpt(jax_ref):
+    """The same on gpt: from JAX's state before GPTQ every code is JAX's
+    (the flow's extra step, ``GPT_FLOW_MAX_STEP``, comes from the ulps
+    SmoothQuant leaves before it)."""
+    flows = jax_ref["gpt_flows"]
+    want = flows["dynamic_gptq"]
+    m = _port_tiny("gpt", flows["vocab"])
+    llm_ptq.use_dynamic_act_quant(m, 8)
+    load_jax_state(m, want["before_gptq"])
+    calib = [torch.tensor(b) for b in flows["calib"]]
+    report = PG.apply_gptq(m, calib, forward_fn=lambda mm, b: mm(b, causal=True))
+    assert list(report) == list(want["codes"])
+    _assert_codes_close(port_weight_codes(m), want["codes"], "apply_gptq gpt")
 
 
 def test_jax_gptq_moves_codes_beyond_the_flip_share(jax_ref):
@@ -724,12 +761,6 @@ def test_llm_ptq_cli_llama_smoke():
     assert np.isfinite(res["float_bpc"]) and np.isfinite(res["quant_bpc"])
     assert res["served_bpc"] is not None and np.isfinite(res["served_bpc"])
     assert res["quant_bpc"] < res["float_bpc"] + 1.5
-
-
-@pytest.mark.parametrize("flag", ["--awq", "--gpfq", "--rotate", "--mx"])
-def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        llm_ptq.main([flag, "--device", "cpu"])
 
 
 def test_main_needs_a_card_unless_asked():
