@@ -3,7 +3,9 @@
 Trains the FC family (TFC, SFC, LFC) and CNV with the square hinge loss,
 Adam and weight clipping to [-1, 1] after every step, on MNIST read from idx
 files or CIFAR-10 read from its python-version batches under ``--data-dir``,
-or on synthetic data made from a numpy seed. On the card every per-tensor
+or on scikit-learn's 8 x 8 digits upscaled to 28 x 28 (``--dataset digits``,
+read from the copy in ``data/digits.npz``), or on synthetic data made from a
+numpy seed. On the card every per-tensor
 INT quantizer of the network runs the ``fake_quant`` CUDA kernel, forward
 and backward; 1-bit (BINARY) quantizers run their plain sign ops, as in
 the JAX package, which has no kernel for them; CNV's convs run as float32
@@ -20,8 +22,7 @@ per-step loop and evaluation, the best-accuracy checkpoint under
 ``--ckpt-dir`` (``best.pt``: ``torch.save`` of the model's and Adam's
 ``state_dict``s, the dropout generator's state and the next epoch to run)
 and ``--resume`` from it, which repeats a straight run bit for bit. Left
-out, each with an error that says so: ``--dataset digits`` (needs
-``sklearn``), ``--scan`` and ``--native-loader``.
+out, each with an error that says so: ``--scan`` and ``--native-loader``.
 """
 
 import argparse
@@ -47,6 +48,7 @@ from brevitas_tpu_torch.utils import resolve_device
 NETWORKS = {"TFC": (tfc, "fc"), "SFC": (sfc, "fc"), "LFC": (lfc, "fc"), "CNV": (cnv, "cnv")}
 CFG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cfg")
 CHECKPOINT = "best.pt"
+DIGITS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "digits.npz")
 
 
 def parse_network(name: str):
@@ -141,6 +143,35 @@ def load_cifar10(data_dir: str, split: str):
         xs.append(np.asarray(d[b"data"], np.float32) / 255.0)
         ys.append(np.asarray(d[b"labels"], np.int32))
     return np.concatenate(xs).reshape(-1, 3, 32, 32), np.concatenate(ys)
+
+
+def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """Source index of each output pixel of a nearest-neighbour resize with
+    half-pixel centres (``jax.image.resize(..., "nearest")``'s rule):
+    ``floor((i + 0.5) * n_in / n_out)``, in integers."""
+    return (2 * np.arange(n_out) + 1) * n_in // (2 * n_out)
+
+
+def load_digits_upscaled(split: str, image_size: int = 28):
+    """The 1,797 8 x 8 handwritten digits of the UCI ML "Optical Recognition
+    of Handwritten Digits" set, as scikit-learn bundles them
+    (``sklearn.datasets.load_digits``), read from the repository's copy
+    ``data/digits.npz`` (pixel values 0-16 and labels, uint8), scaled to
+    [0, 1] and upscaled to MNIST's 28 x 28 by nearest neighbour: the JAX
+    trainer's split (a ``default_rng(0)`` permutation, the first 80 %
+    train) and resize, as (N, 1, 28, 28) float32 and int32 labels."""
+    with np.load(DIGITS) as d:
+        x = d["images"].astype(np.float32) / 16.0
+        y = d["target"].astype(np.int32)
+    n_train = int(0.8 * len(x))
+    idx = np.random.default_rng(0).permutation(len(x))
+    x, y = x[idx], y[idx]
+    rows = _nearest_index(x.shape[1], image_size)
+    cols = _nearest_index(x.shape[2], image_size)
+    x = np.ascontiguousarray(x[:, rows][:, :, cols][:, None])
+    if split == "train":
+        return x[:n_train], y[:n_train]
+    return x[n_train:], y[n_train:]
 
 
 def load_synthetic(split: str, kind: str, n: int = 2048, seed: int = 0):
@@ -258,9 +289,6 @@ def train(args: argparse.Namespace):
     for opt, why in LEFT_OUT.items():
         if getattr(args, opt):
             raise NotImplementedError(f"--{opt.replace('_', '-')}: {why}")
-    if args.dataset == "digits":
-        raise NotImplementedError("--dataset digits needs sklearn; use mnist (idx files under "
-                                  "--data-dir) or synthetic")
     device = resolve_device(args.device)
     if args.cfg:
         builder, model_kw, kind, _ = load_cfg(args.cfg)
@@ -280,6 +308,9 @@ def train(args: argparse.Namespace):
     elif args.dataset == "cifar10":
         x_train, y_train = load_cifar10(args.data_dir, "train")
         x_test, y_test = load_cifar10(args.data_dir, "test")
+    elif args.dataset == "digits":
+        x_train, y_train = load_digits_upscaled("train")
+        x_test, y_test = load_digits_upscaled("test")
     else:
         x_train, y_train = load_synthetic("train", kind)
         x_test, y_test = load_synthetic("test", kind, n=512)

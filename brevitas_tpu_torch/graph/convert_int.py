@@ -16,8 +16,9 @@ hand-written kernel.
 
 Convs: torch has no int8 conv on CUDA, and cuDNN's float32 convs miss
 integer sums on the H100 (Winograd/FFT). A pointwise conv (kernel 1,
-stride 1, dilation 1, ungrouped, no padding) is a GEMM and runs on
-``int8_matmul``; every other conv sums its codes through the port's
+ungrouped, no padding; at stride s it reads every s-th position, so the
+input is subsampled first, as ResNet's downsampling shortcuts need) is a
+GEMM and runs on ``int8_matmul``; every other conv sums its codes through the port's
 patch-matrix conv (``nn.conv.conv_nd``), in float32 where the worst case
 ``K * 128 * max|w code|`` stays below 2^24 (every partial sum an exact
 integer), else in float64 (exact below 2^53). The rule is decided when the
@@ -348,8 +349,6 @@ class Int8InferenceConv(nn.Module):
             self.groups = qconv.groups
             self.padding = qconv.padding
             self.pointwise = (all(k == 1 for k in qconv.kernel_size)
-                              and all(v == 1 for v in qconv.stride)
-                              and all(v == 1 for v in qconv.dilation)
                               and qconv.groups == 1
                               and (isinstance(qconv.padding, str)
                                    or all(p == (0, 0) for p in qconv.padding)))
@@ -378,6 +377,9 @@ class Int8InferenceConv(nn.Module):
     def _conv(self, x_int: torch.Tensor) -> torch.Tensor:
         """The float32 accumulator of the conv of int8 codes, exact."""
         if self.pointwise:
+            if any(v != 1 for v in self.stride):
+                x_int = x_int[(slice(None), slice(None))
+                              + tuple(slice(None, None, v) for v in self.stride)]
             n, c = x_int.shape[:2]
             flat = x_int.movedim(1, -1).reshape(-1, c)
             acc = int8_matmul(flat, self.w_mat, self.unit, self.unit)

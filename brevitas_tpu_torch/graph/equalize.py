@@ -1,5 +1,7 @@
-"""Activation equalization (port of ``brevitas_tpu/graph/equalize.py``;
-ported: SmoothQuant, ``apply_act_equalization``, with the helpers it uses).
+"""Cross-layer and activation equalization (port of
+``brevitas_tpu/graph/equalize.py``): cross-layer equalization
+(``cross_layer_equalization``, ``equalize``, ``sequential_regions``) and
+SmoothQuant (``apply_act_equalization``), with the helpers they share.
 
 Regions are ``([src_path, ...], [sink_path, ...])`` module paths, given by
 hand (``models.llama.llama_smoothquant_regions``) or found from a traced
@@ -8,8 +10,16 @@ weights are torch's: a linear's (out, in), a conv's (O, I / groups,
 *kernel), so a sink's input channels lie on axis 1 where the JAX package's
 (in, out) and HWIO kernels have them on axis -2.
 
-Cross-layer equalization (``cross_layer_equalization``, ``equalize``,
-``sequential_regions``) and the BatchNorm passes are not ported yet.
+Cross-layer equalization (arXiv:1906.04721, section 4.1) scales each
+source's output channels by 1/s and the sinks' input channels by s, with
+``s = sqrt(range_src / range_sink)``: the ranges are maxima and minima and
+the factors one float32 division and square root, each correctly rounded
+(the root taken in float64 and rounded once, ``nn.misc.sqrt32``: torch's
+float32 one is not correctly rounded), so the port's factors and weights
+are the JAX package's bit for bit (the
+per-channel views flatten the other axes in another order, which a range
+does not see). ``absorb_bias_by_batch_norm`` and ``split_batch_norm`` are not
+ported yet.
 """
 
 from typing import List, Sequence, Tuple
@@ -21,6 +31,7 @@ from brevitas_tpu_torch.graph.base import get_module
 from brevitas_tpu_torch.models.common import LayerNorm, RMSNorm
 from brevitas_tpu_torch.nn.conv import _QuantConvNd
 from brevitas_tpu_torch.nn.linear import QuantLinear
+from brevitas_tpu_torch.nn.misc import sqrt32
 
 EPSILON = 1e-9
 
@@ -88,6 +99,34 @@ def _scale_region(srcs: Sequence, sinks: Sequence, s: torch.Tensor) -> None:
         shape = [1] * k.ndim
         shape[in_ax] = k.shape[in_ax]
         k.mul_(s.reshape(shape))
+
+
+def cross_layer_equalization(srcs: Sequence, sinks: Sequence) -> torch.Tensor:
+    """Equalize one region in place; returns the factors."""
+    with torch.no_grad():
+        src_views = [_channel_view(m.weight, _axes(m)[1]) for m in srcs]
+        sink_views = [_channel_view(m.weight, _axes(m)[0]) for m in sinks]
+        src_range = _channel_range(torch.cat(src_views, dim=1))
+        sink_range = _channel_range(torch.cat(sink_views, dim=1)) + EPSILON
+        s = sqrt32(src_range / sink_range)
+        _scale_region(srcs, sinks, s)
+    return s
+
+
+def equalize(model: nn.Module, regions: List[Tuple[Sequence[str], Sequence[str]]],
+             iterations: int = 10) -> nn.Module:
+    """``iterations`` rounds of cross-layer equalization over the regions,
+    each ``([src_path, ...], [sink_path, ...])``."""
+    for _ in range(iterations):
+        for src_paths, sink_paths in regions:
+            cross_layer_equalization([get_module(model, p) for p in src_paths],
+                                     [get_module(model, p) for p in sink_paths])
+    return model
+
+
+def sequential_regions(layer_paths: Sequence[str]) -> List[Tuple[List[str], List[str]]]:
+    """Adjacent-pair regions of a plain sequential stack of layers."""
+    return [([a], [b]) for a, b in zip(layer_paths[:-1], layer_paths[1:])]
 
 
 def _pow(x: torch.Tensor, e: float) -> torch.Tensor:

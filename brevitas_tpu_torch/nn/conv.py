@@ -28,6 +28,11 @@ to the dtype once (a bf16 conv with float32 accumulation) and upcast to its
 operand's dtype. This is not the linear's rule (``nn.linear``), whose
 backward takes the unrounded gradient.
 
+``FloatConv1d`` / ``FloatConv2d`` are float convs (``torch.nn.Conv1d`` /
+``Conv2d`` with the JAX package's ``nnx.Conv`` padding rule and the same
+patch-matrix conv): the layers of a float model that ``graph.quantize``
+turns into quant convs, keeping their padding.
+
 Left out: the transposed convs (slice 11).
 """
 
@@ -253,6 +258,60 @@ class QuantConv2d(_QuantConvNd):
 
     def __init__(self, in_channels, out_channels, kernel_size, **kw):
         super().__init__(2, in_channels, out_channels, kernel_size, **kw)
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator] = None):
+    """flax's default kernel init: a normal truncated at two standard
+    deviations, scaled to variance ``1 / fan_in``."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    with torch.no_grad():
+        return torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                           generator=generator)
+
+
+class _FloatConvMixin:
+    """A float conv with XLA's padding ('SAME', 'VALID' or (lo, hi) pairs)
+    through ``conv_nd``; flax's init (``lecun_normal_`` kernel, zero
+    bias)."""
+
+    def _setup(self, spatial_dims, padding, generator):
+        self.spatial_dims = spatial_dims
+        self.xla_padding = padding_spec(padding, spatial_dims)
+        lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def pads(self, sizes):
+        return resolve_pads(self.xla_padding, sizes, self.kernel_size, self.stride,
+                            self.dilation)
+
+    def forward(self, x):
+        y = conv_nd(x, self.weight, self.stride, self.pads(x.shape[2:]), self.dilation,
+                    self.groups)
+        if self.bias is not None:
+            y = y + self.bias.reshape(-1, *(1,) * self.spatial_dims)
+        return y
+
+
+class FloatConv1d(_FloatConvMixin, torch.nn.Conv1d):
+    """(N, C, L) inputs."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding="SAME",
+                 dilation=1, groups=1, bias=True, generator=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         dilation=dilation, groups=groups, bias=bias)
+        self._setup(1, padding, generator)
+
+
+class FloatConv2d(_FloatConvMixin, torch.nn.Conv2d):
+    """(N, C, H, W) inputs."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1, padding="SAME",
+                 dilation=1, groups=1, bias=True, generator=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         dilation=dilation, groups=groups, bias=bias)
+        self._setup(2, padding, generator)
 
 
 class QuantConvTranspose1d:

@@ -16,12 +16,14 @@ JAX): under bf16 their +-scale values are cast to bf16 like any float
 operand.
 
 With ``_capture_input`` set on a layer, its forward keeps the input it was
-given in ``_bc_last_input``: the PTQ passes (SmoothQuant, GPTQ) read a
-layer's calibration inputs so. A per-token input scale (..., 1) broadcasts
-over the output's last axis like a per-tensor one.
+given in ``_bc_last_input``: the PTQ passes (SmoothQuant, GPTQ, AdaRound,
+bias correction) read a layer's calibration inputs so. A per-token input
+scale (..., 1) broadcasts over the output's last axis like a per-tensor
+one. A ``_pre_output_hook(layer, qt_out)`` set on a layer sees the output
+before the output quantizer and may replace it (bias correction's seam).
+``cache_quant_weight`` keeps the fake-quant weight for eval serving.
 
-Left out: the cached inference weight, accumulator-aware (A2Q) weights and
-the bias-correction hook.
+Left out: accumulator-aware (A2Q) weights.
 """
 
 from typing import Optional, Union
@@ -116,7 +118,25 @@ class QuantWBIOL(QuantLayerMixin, nn.Module):
         return v.reshape(-1)
 
     def quant_weight(self) -> QuantTensor:
+        cached = getattr(self, "_cached_quant_weight", None)
+        if cached is not None and not self.weight_quant.disable_quant and not self.training:
+            return cached
         return self.weight_quant(self.weight)
+
+    def cache_quant_weight(self) -> None:
+        """Keep the fake-quant weight for eval serving, so forwards skip the
+        quantizer. The cache is not read in training mode or while
+        quantization is bypassed, and ``train()`` drops it."""
+        with torch.no_grad():
+            self._cached_quant_weight = self.weight_quant(self.weight)
+
+    def clear_quant_weight_cache(self) -> None:
+        self._cached_quant_weight = None
+
+    def train(self, mode: bool = True):
+        if mode:
+            self.clear_quant_weight_cache()
+        return super().train(mode)
 
     def forward_quant(self, inp: TensorOrQuant, inner_forward) -> TensorOrQuant:
         if getattr(self, "_capture_input", False):
@@ -191,6 +211,11 @@ class QuantWBIOL(QuantLayerMixin, nn.Module):
 
         qt_out = QuantTensor(out, output_scale, output_zero_point, output_bit_width,
                              signed=output_signed, training=self.input_quant.training)
+        hook = getattr(self, "_pre_output_hook", None)
+        if hook is not None:
+            maybe = hook(self, qt_out)
+            if maybe is not None:
+                qt_out = maybe
         if self.output_quant.quant_type != QuantType.NONE:
             qt_out = self.output_quant(qt_out.value)
         return self.pack_output(qt_out)

@@ -2,8 +2,10 @@
 
 Ported: the ones the port's models use, the binary and ternary constants,
 the shifted (asymmetric, zero-point) unsigned ones, the learned bit-width
-variants, the dynamic int8 activation quantizers and the groupwise INT
-weights (MX and float-scaled). Compose variants with ``.let(...)``.
+variants, the dynamic int8 activation quantizers, the groupwise INT
+weights (MX and float-scaled), the 8-bit fixed-point (power-of-two scale)
+weights and activations of the flexml flow, and the biases of a constant
+bit width on the accumulator's scale. Compose variants with ``.let(...)``.
 """
 
 from brevitas_tpu_torch.core.restrict import FloatToIntImpl, RestrictType
@@ -33,6 +35,7 @@ _PARAM_FROM_PERCENTILE_INTERVAL = dict(
     scaling_stats_op=StatsOp.PERCENTILE_INTERVAL,
     high_percentile_q=99.999, low_percentile_q=0.001,
     collect_stats_steps=300, scaling_min_val=1e-10)
+
 _PO2 = dict(restrict_scaling=RestrictType.POWER_OF_TWO,
             restrict_scaling_float_to_int=FloatToIntImpl.CEIL)
 
@@ -40,6 +43,10 @@ Int8WeightPerTensorFloat = _INT.let(narrow_range=True, bit_width=8, **_MAX_STATS
 Int8WeightPerChannelFloat = Int8WeightPerTensorFloat.let(scaling_per_output_channel=True)
 Int4WeightPerTensorFloat = Int8WeightPerTensorFloat.let(bit_width=4)
 Int4WeightPerChannelFloat = Int8WeightPerChannelFloat.let(bit_width=4)
+
+# fixed point: the scale is 2 to the ceiling of its log2
+Int8WeightPerTensorFixedPoint = Int8WeightPerTensorFloat.let(**_PO2)
+Int8WeightPerChannelFixedPoint = Int8WeightPerChannelFloat.let(**_PO2)
 
 # asymmetric unsigned weights: the range from min to max, a zero point from
 # the negative minimum, put on the grid
@@ -52,6 +59,8 @@ ShiftedUint8WeightPerChannelFloat = ShiftedUint8WeightPerTensorFloat.let(
 
 Int8ActPerTensorFloat = _INT.let(bit_width=8, **_PARAM_FROM_PERCENTILE)
 Uint8ActPerTensorFloat = _UINT.let(bit_width=8, **_PARAM_FROM_PERCENTILE)
+Int8ActPerTensorFixedPoint = Int8ActPerTensorFloat.let(**_PO2)
+Uint8ActPerTensorFixedPoint = Uint8ActPerTensorFloat.let(**_PO2)
 
 # asymmetric unsigned activations: a two-phase scale of the percentile
 # interval and a two-phase zero point of the low percentile
@@ -63,6 +72,10 @@ ShiftedUint8ActPerTensorFloat = _UINT.let(
 # a bias on the accumulator's grid: its scale and bit width come from the
 # layer (input scale x weight scale, the accumulator bit width)
 IntBias = _INT.let(requires_input_scale=True, requires_input_bit_width=True)
+# the accumulator's scale, a constant bit width (quantize()'s default bias)
+Int8Bias = IntBias.let(bit_width=8, requires_input_bit_width=False)
+Int16Bias = IntBias.let(bit_width=16, requires_input_bit_width=False)
+Int32Bias = IntBias.let(bit_width=32, requires_input_bit_width=False)
 
 # accumulator truncation (QuantAvgPool2d): drop low bits by flooring
 TruncTo8bit = QuantConfig(quant_type=QuantType.INT, bit_width=8,

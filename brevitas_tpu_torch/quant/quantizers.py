@@ -17,7 +17,8 @@ the MX INT presets: one scale per run of reduction-axis elements of an
 output channel, expanded to the weight's shape), and activation quantizers, INT
 per-tensor or per channel, signed or unsigned, with the static grid of an
 INT one (``ActQuantizer.static_int_params``); the NONE bias quantizer and
-the INT one on the accumulator's grid (``IntBias``); the truncating
+the INT one on the accumulator's scale, its bit width the accumulator's
+(``IntBias``) or a constant (``Int8Bias`` .. ``Int32Bias``); the truncating
 quantizer of QuantAvgPool2d; and the ``disable_quant`` switch that
 calibration mode sets. Configs that need anything else raise
 ``NotImplementedError``. On the card a per-tensor INT quantizer's
@@ -672,11 +673,14 @@ class ActQuantizer(_FloatToIntMixin, nn.Module):
 
 
 class BiasQuantizer(nn.Module):
-    """Bias quantizer: NONE, or INT on the accumulator's grid, its scale the
-    layer's input scale times its weight scale (``requires_input_scale``)
-    and its bit width the accumulator's (``requires_input_bit_width``). A
-    scale of the bias's own statistics, or a constant bit width, is not
-    ported."""
+    """Bias quantizer: NONE, or INT on the accumulator's scale, the layer's
+    input scale times its weight scale (``requires_input_scale``), its bit
+    width the accumulator's (``requires_input_bit_width``) or the config's
+    constant one (``Int32Bias``: a 32-bit grid, the clamp bounds -2^31 and
+    2^31 in float32). A per-tensor scale goes to ``fake_quant`` on the card
+    by ``int_fake_quant``'s rule, the bit width being a number either way;
+    a per-channel one takes the chain. A scale of the bias's own statistics
+    is not ported."""
 
     def __init__(self, cfg: QuantConfig):
         super().__init__()
@@ -691,9 +695,7 @@ class BiasQuantizer(nn.Module):
         if not cfg.requires_input_scale:
             raise NotImplementedError("a bias scale from the bias's own statistics is not "
                                       "ported yet")
-        if not cfg.requires_input_bit_width:
-            raise NotImplementedError("a bias bit width other than the accumulator's is "
-                                      "not ported yet")
+        self.bit_width_impl = None if cfg.requires_input_bit_width else BitWidth(cfg)
         self._float_to_int = R.float_to_int_fn(cfg.float_to_int)
 
     def forward(self, b: torch.Tensor, input_scale=None,
@@ -701,7 +703,9 @@ class BiasQuantizer(nn.Module):
         cfg = self.cfg
         if self.quant_type == QuantType.NONE or self.disable_quant:
             return QuantTensor(b)
-        if input_bit_width is None:
+        if self.bit_width_impl is not None:
+            input_bit_width = self.bit_width_impl()
+        elif input_bit_width is None:
             raise ValueError("the bias quantizer needs the accumulator bit width")
         if input_scale is None:
             raise ValueError("the bias quantizer needs the accumulator scale "

@@ -236,6 +236,29 @@ Phases; any failure exits non-zero and prints no result:
              sums reach (the 15 per-tensor learned thresholds and the head's
              weight: within 1e-3 of their largest); a CPU copy's first loss
              within 1e-5, its codes set to the card's at certified ties.
+12h. ptq_calibrate - examples.ptq_calibrate.main on the repository's digits,
+             at the CLI's defaults: (a) --model mlp --per-channel
+             --learned-round --convert-int (1,000 AdaRound steps a layer),
+             (b) --model convnet --fixed-point --gptq --convert-int. Every
+             fake_quant and int8_matmul call over main held against its
+             plain version as it returns (each 32-bit bias call also against
+             the chain); the twins (3 Int8InferenceLinear; 1 and 2
+             Int8InferenceConv) and 2 int8_matmul launches a linear over
+             main; the converted model's twins and logits bit for bit with
+             a CPU copy; the JAX tests' accuracy bounds; host ms a stage and
+             AdaRound's per-layer output MSE.
+12i. flexml_resnet18 - float_resnet(18, width_mult=1.0) on bench's CNV
+             inputs: BatchNorm statistics from 10 train-mode forwards at
+             batch 256, preprocess_flexml from one image (20 pairs, the 12
+             regions the CPU tests hold to JAX), quantize_flexml,
+             calibration (4 batches), bias correction (2), the fake-quant
+             forward (63 fake_quant launches, within the JAX zoo test's
+             bound of float), convert_integer_inference and a served
+             forward at batch 256 (4 int8_matmul launches: the head and the
+             3 strided shortcuts; 17 convs on the exact route), every call
+             against its plain version, the twins and 16 rows of logits
+             bit for bit with a CPU copy; served against fake-quant, host
+             ms a stage, a profile of the served forward.
 13. report - one {"kernels": [...]} line; the last line is
              {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -3927,6 +3950,361 @@ def phase_mobilenet_qat(dev, bf16: bool) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# CNN post-training quantization (slice 9c): examples.ptq_calibrate and the
+# flexml flow on a full-width float ResNet-18
+# ---------------------------------------------------------------------------
+
+# the CLI's two runs at its defaults (5 float epochs at batch 128, 4
+# calibration batches, 2 bias-correction batches, 1,000 AdaRound steps)
+PTQ_RUNS = {"mlp_pc_adaround": ["--model", "mlp", "--per-channel", "--learned-round",
+                                "--convert-int"],
+            "convnet_fp_gptq": ["--model", "convnet", "--fixed-point", "--gptq",
+                                "--convert-int"]}
+# the JAX CLI tests' bounds (tests/test_end_to_end.py): float accuracy above,
+# fake-quant and served accuracy within this much of float, and the conv
+# net's preprocessed accuracy within 0.02 of float
+PTQ_BOUNDS = {"mlp_pc_adaround": (0.8, 0.05, 0.05), "convnet_fp_gptq": (0.75, 0.06, 0.05)}
+PTQ_PREPROCESSED_TOL = 0.02
+# the serving twins each run leaves, and int8_matmul launches over main: the
+# served scoring of the 360 test digits in 2 batches, one a linear
+PTQ_TWINS = {"mlp_pc_adaround": {"Int8InferenceLinear": 3},
+             "convnet_fp_gptq": {"Int8InferenceLinear": 1, "Int8InferenceConv": 2}}
+PTQ_TEST_BATCHES = 2
+# float ResNet-18 at full width (11.2 M parameters), CIFAR stem, 10 classes,
+# on 32 x 32 x 3 images drawn as bench's load_synthetic("train", "cnv") draws
+# them; BatchNorm statistics from 10 train-mode forwards at batch 256
+RESNET_BATCH = 256
+RESNET_BN_FORWARDS = 10
+RESNET_CALIB = 4
+RESNET_BIAS = 2
+RESNET_CPU_IMAGES = 16   # rows of the served batch held against a CPU copy
+RESNET_PAIRS = 20
+# the regions tests/test_torch_port_ptq.py holds to the JAX package's at width
+# 0.125: the same paths at every width
+RESNET_REGIONS = sorted(
+    [(["blocks.0.conv2.conv", "blocks.1.conv2.conv", "stem.conv"],
+      ["blocks.0.conv1.conv", "blocks.1.conv1.conv", "blocks.2.conv1.conv",
+       "blocks.2.downsample.conv"]),
+     (["blocks.2.conv2.conv", "blocks.2.downsample.conv", "blocks.3.conv2.conv"],
+      ["blocks.3.conv1.conv", "blocks.4.conv1.conv", "blocks.4.downsample.conv"]),
+     (["blocks.4.conv2.conv", "blocks.4.downsample.conv", "blocks.5.conv2.conv"],
+      ["blocks.5.conv1.conv", "blocks.6.conv1.conv", "blocks.6.downsample.conv"]),
+     (["blocks.6.conv2.conv", "blocks.6.downsample.conv", "blocks.7.conv2.conv"],
+      ["blocks.7.conv1.conv", "output"])]
+    + [([f"blocks.{i}.conv1.conv"], [f"blocks.{i}.conv2.conv"]) for i in range(8)])
+# the JAX model zoo test's bound on fake-quant against float
+# (tests/test_model_zoo.py): err < 0.35 * span + 0.1
+RESNET_FQ_BOUND = (0.35, 0.1)
+# served against fake-quant: the twins compute the fake-quant function up to
+# float32 rounding and .5 ties of the activation codes; a CPU run at width
+# 0.125 measured 3 % of the span
+RESNET_SERVED_VS_FQ = 0.1
+# a served forward: the head and the 3 strided 1 x 1 shortcuts on
+# int8_matmul, the other 17 convs on the exact route; a fake-quant forward:
+# input, weight and 32-bit bias quantizers of the 21 layers on fake_quant
+RESNET_SERVED_INT8 = 4
+RESNET_FQ_FORWARD = 3 * 21
+
+
+@contextlib.contextmanager
+def checked_kernel_calls(counts: dict):
+    """Every call of the quantizers' fake_quant and of the serving twins'
+    int8_matmul held, as it returns, against its plain version on the same
+    inputs (bit for bit). Each 32-bit bias call (clamp bounds -2^31 and
+    2^31) is also held against core/quant.py's chain. The checks launch no
+    kernel; ``counts`` gets the calls checked."""
+    from brevitas_tpu_torch.core import quant as Qf
+    from brevitas_tpu_torch.graph import convert_int as CI
+    from brevitas_tpu_torch.kernels import fake_quant_reference, int8_matmul_reference
+    from brevitas_tpu_torch.quant import quantizers
+
+    real_fq, real_mm = quantizers.fake_quant, CI.int8_matmul
+    counts.update(fake_quant=0, int8_matmul=0, bias32=0)
+
+    def fq(x, scale, zero_point, lo, hi, *args, **kw):
+        y = real_fq(x, scale, zero_point, lo, hi, *args, **kw)
+        with torch.no_grad():
+            if not torch.equal(y, fake_quant_reference(x, scale, zero_point, lo, hi)):
+                raise AssertionError(f"fake_quant at {tuple(x.shape)} on [{lo}, {hi}] differs "
+                                     "from its plain version")
+            if lo == -2.0 ** 31:
+                chain = Qf.int_quant(x, scale, zero_point, 32.0, signed=True,
+                                     narrow_range=False)
+                if not torch.equal(y, chain):
+                    raise AssertionError("the 32-bit bias on fake_quant differs from the chain")
+                counts["bias32"] += 1
+        counts["fake_quant"] += 1
+        return y
+
+    def mm(*args, **kw):
+        y = real_mm(*args, **kw)
+        if not torch.equal(y, int8_matmul_reference(*args, **kw)):
+            raise AssertionError(f"int8_matmul at {tuple(args[0].shape)} x "
+                                 f"{tuple(args[1].shape)} differs from its plain version")
+        counts["int8_matmul"] += 1
+        return y
+
+    quantizers.fake_quant, CI.int8_matmul = fq, mm
+    try:
+        yield
+    finally:
+        quantizers.fake_quant, CI.int8_matmul = real_fq, real_mm
+
+
+def compare_twins_with_cpu_copy(model, x: torch.Tensor, what: str, rows: int) -> dict:
+    """Serve ``x`` on the card; hold each serving twin (Int8InferenceLinear,
+    Int8InferenceConv) of a CPU copy, fed the first ``rows`` rows of the
+    card's input to it, against the card's output bit for bit, and the
+    copy's logits of those rows end to end, bit for bit. Returns the card's
+    logits."""
+    from brevitas_tpu_torch.graph.convert_int import Int8InferenceConv, Int8InferenceLinear
+
+    twins = (Int8InferenceLinear, Int8InferenceConv)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    seen = []
+    hooks = [mod.register_forward_hook(
+        lambda mod, args, out, name=name: seen.append(
+            (name, _to_cpu(args[0][:rows]), out[:rows].cpu())))
+        for name, mod in model.named_modules() if isinstance(mod, twins)]
+    try:
+        with torch.no_grad():
+            logits = model(x)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    kinds = {}
+    with torch.no_grad():
+        for name, inp, got in seen:
+            twin = cpu_model.get_submodule(name)
+            want = twin(inp)
+            kinds[type(twin).__name__] = kinds.get(type(twin).__name__, 0) + 1
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what}: twin {name} disagrees with its CPU copy: max "
+                                     f"{float((got - want).abs().max())}")
+        cpu_logits = cpu_model(x[:rows].cpu())
+    got = logits[:rows].cpu()
+    same = torch.equal(got, cpu_logits)
+    print(f"[{what}] {len(seen)} twins {kinds} of a CPU copy fed the card's inputs ({rows} "
+          f"rows): bit for bit; logits of those rows end to end bit for bit: {same} (max |diff| "
+          f"{float((got - cpu_logits).abs().max()):.3g})")
+    if not torch.isfinite(logits).all() or not same:
+        raise AssertionError(f"{what}: logits disagree with the CPU copy")
+    return logits
+
+
+def phase_ptq_calibrate(dev, run: str) -> dict:
+    """examples.ptq_calibrate.main on the card: run (a) ``--model mlp
+    --per-channel --learned-round --convert-int`` (1,000 AdaRound steps a
+    layer) or (b) ``--model convnet --fixed-point --gptq --convert-int``,
+    on the repository's digits. Every fake_quant and int8_matmul call over
+    main held against its plain version (checked_kernel_calls; the stage
+    times include those checks); the launches over main and over one served
+    forward of the test set; the serving twins; the converted model against
+    a CPU copy (compare_twins_with_cpu_copy, every row); the JAX tests'
+    accuracy bounds; each stage's host ms; AdaRound's per-layer output MSE,
+    nearest against learned."""
+    from brevitas_tpu_torch.examples import ptq_calibrate
+
+    what = f"ptq_calibrate_{run}"
+    keep, checked = {}, {}
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    with checked_kernel_calls(checked):
+        result = ptq_calibrate.main(PTQ_RUNS[run] + ["--device", str(dev)], keep=keep)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = _launch_counts()
+    _record_path(what, counts)
+    print(f"[{what}] main {main_s:.1f} s ({CARD[0]}): launches {counts}; calls held bit for "
+          f"bit against their plain versions: {checked}")
+    if counts["int8_matmul"] != sum(PTQ_TWINS[run].get("Int8InferenceLinear", 0)
+                                    for _ in range(PTQ_TEST_BATCHES)):
+        raise AssertionError(f"{what}: int8_matmul launched {counts['int8_matmul']} times")
+    if counts["fake_quant"] == 0 or counts["fake_quant"] != checked["fake_quant"]:
+        raise AssertionError(f"{what}: fake_quant launches {counts['fake_quant']} against "
+                             f"{checked['fake_quant']} calls checked")
+    others = {k: v for k, v in counts.items() if k not in ("int8_matmul", "fake_quant") and v}
+    if others:
+        raise AssertionError(f"{what}: unexpected launches {others}")
+    model, x_test, y_test = keep["model"], keep["x_test"], keep["y_test"]
+    twins = {}
+    for mod in model.modules():
+        if "Inference" in type(mod).__name__:
+            twins[type(mod).__name__] = twins.get(type(mod).__name__, 0) + 1
+    if twins != PTQ_TWINS[run]:
+        raise AssertionError(f"{what}: serving twins {twins}, expected {PTQ_TWINS[run]}")
+    x = torch.from_numpy(x_test).to(dev)
+    _reset_launch_counts()
+    with torch.no_grad(), checked_kernel_calls({}):
+        model(x)
+    torch.cuda.synchronize()
+    per_forward = _launch_counts()
+    print(f"[{what}] one served forward of the {len(x_test)} test digits: launches "
+          f"{per_forward}")
+    if per_forward["int8_matmul"] != PTQ_TWINS[run].get("Int8InferenceLinear", 0):
+        raise AssertionError(f"{what}: a served forward launched {per_forward}")
+    compare_twins_with_cpu_copy(model, x, what, rows=len(x_test))
+
+    floor, ptq_tol, int_tol = PTQ_BOUNDS[run]
+    fa, pa, qa, ia = (result[k] for k in ("float_acc", "preprocessed_acc", "ptq_acc", "int_acc"))
+    print(f"[{what}] accuracy: float {fa}, preprocessed {pa}, fake-quant {qa}, served {ia} "
+          f"(bounds: float > {floor}, fake-quant > float - {ptq_tol}, served > float - "
+          f"{int_tol})")
+    if not (fa > floor and qa > fa - ptq_tol and ia > fa - int_tol):
+        raise AssertionError(f"{what}: accuracy out of the JAX tests' bounds")
+    if run.startswith("convnet") and abs(pa - fa) > PTQ_PREPROCESSED_TOL:
+        raise AssertionError(f"{what}: preprocessing moved the accuracy by {pa - fa}")
+    mse = keep["learned_round"]
+    if mse:
+        print(f"[{what}] AdaRound output MSE a layer (nearest, learned): "
+              + ", ".join(f"{p} ({a:.4g}, {b:.4g})" for p, (a, b) in mse.items()))
+    print(f"[{what}] stages (host ms, {CARD[0]}): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in keep["stage_ms"].items()))
+
+    def forward():
+        model(x)
+        torch.cuda.synchronize()
+
+    out = {"card": CARD[0], "result": result, "launches_over_main": counts,
+           "launches_per_forward": per_forward, "calls_checked": checked,
+           "stage_ms": keep["stage_ms"], "main_s": main_s, "twins": twins,
+           "adaround_mse": mse}
+    out["profile"] = profile_steps(forward, what, f"served forward of {len(x_test)}")
+    return out
+
+
+def phase_flexml_resnet18(dev) -> dict:
+    """The flexml flow on float_resnet(18, width_mult=1.0) (CIFAR stem, 10
+    classes, 11.2 M parameters; random weights from seed 0), at bench's
+    CNV inputs: BatchNorm statistics from RESNET_BN_FORWARDS train-mode
+    forwards, then preprocess_flexml from one image (20 pairs, the regions
+    of RESNET_REGIONS), quantize_flexml, calibration (RESNET_CALIB batches),
+    bias correction (RESNET_BIAS), the fake-quant forward against float (the
+    JAX zoo test's bound), convert_integer_inference and a served forward at
+    batch 256: its launches, every fake_quant and int8_matmul call against
+    its plain version, the twins against a CPU copy on RESNET_CPU_IMAGES
+    rows, served against fake-quant, the exact route's float32 / float64
+    split, host ms a stage and a profile of one served forward."""
+    from brevitas_tpu_torch import graph as G
+    from brevitas_tpu_torch.examples.bnn_pynq import load_synthetic
+    from brevitas_tpu_torch.graph.convert_int import Int8InferenceConv
+    from brevitas_tpu_torch.models import float_resnet
+
+    what = "flexml_resnet18"
+    stage = {}
+
+    def timed_stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stage[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    x_all, _ = load_synthetic("train", "cnv")
+    x_all = torch.from_numpy(x_all).to(dev)
+    batches = [x_all[i * RESNET_BATCH:(i + 1) * RESNET_BATCH] for i in range(8)]
+    model = float_resnet(18, num_classes=10, width_mult=1.0,
+                         generator=torch.Generator().manual_seed(0), device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def bn_stats():
+        model.train()
+        with torch.no_grad():
+            for i in range(RESNET_BN_FORWARDS):
+                model(batches[i % len(batches)])
+        model.eval()
+
+    timed_stage("bn_statistics", bn_stats)
+    x = batches[-1]
+    with torch.no_grad():
+        y_float = timed_stage("float_forward", lambda: model(x))
+    pairs = G.find_bn_pairs(model, x[:1])
+    timed_stage("preprocess", lambda: G.preprocess_flexml(model, x[:1]))
+    regions = sorted(G.extract_regions(model, x[:1]))
+    print(f"[{what}] {n_params} parameters; {len(pairs)} BatchNorm pairs, {len(regions)} "
+          f"equalization regions ({CARD[0]})")
+    if len(pairs) != RESNET_PAIRS or regions != RESNET_REGIONS:
+        raise AssertionError(f"{what}: pairs {pairs} or regions {regions} are not the JAX "
+                             "package's")
+    with torch.no_grad():
+        gap = float((model(x) - y_float).abs().max())
+    print(f"[{what}] preprocessed against float: max |diff| {gap:.3g}")
+    timed_stage("quantize", lambda: G.quantize_flexml(model, collect_stats_steps=RESNET_CALIB))
+
+    def calibrate():
+        with torch.no_grad(), G.calibration_mode(model):
+            for b in batches[:RESNET_CALIB]:
+                model(b)
+        model.eval()
+
+    def bias_correct():
+        with torch.no_grad(), G.bias_correction_mode(model):
+            for b in batches[:RESNET_BIAS]:
+                model(b)
+
+    timed_stage("calibrate", calibrate)
+    timed_stage("bias_correction", bias_correct)
+    checked = {}
+    _reset_launch_counts()
+    with torch.no_grad(), checked_kernel_calls(checked):
+        y_q = timed_stage("fake_quant_forward", lambda: model(x))
+    fq_counts = _launch_counts()
+    _record_path(f"{what}_fake_quant", fq_counts)
+    err, span = float((y_q - y_float).abs().max()), float(y_float.abs().max())
+    bound = RESNET_FQ_BOUND[0] * span + RESNET_FQ_BOUND[1]
+    print(f"[{what}] fake-quant forward: launches {fq_counts} (checked {checked}); against "
+          f"float max |diff| {err:.4g} of span {span:.4g} (bound {bound:.4g})")
+    if not torch.isfinite(y_q).all() or err >= bound:
+        raise AssertionError(f"{what}: fake-quant output out of the JAX zoo test's bound")
+    if fq_counts["fake_quant"] != RESNET_FQ_FORWARD or checked["bias32"] != 21:
+        raise AssertionError(f"{what}: expected {RESNET_FQ_FORWARD} fake_quant launches, 21 of "
+                             "them 32-bit biases")
+    timed_stage("convert_int", lambda: G.convert_integer_inference(model))
+    convs = [m for m in model.modules() if isinstance(m, Int8InferenceConv)]
+    split = {"int8_matmul": sum(c.pointwise for c in convs),
+             "float32": sum(not c.pointwise and c.acc_dtype == torch.float32 for c in convs),
+             "float64": sum(not c.pointwise and c.acc_dtype == torch.float64 for c in convs)}
+    print(f"[{what}] {len(convs)} Int8InferenceConv: {split} (float64 where K * 128 * 127 "
+          "passes 2^24: 3 x 3 convs of 128 or more input channels)")
+    checked = {}
+    _reset_launch_counts()
+    with torch.no_grad(), checked_kernel_calls(checked):
+        y_int = timed_stage("served_forward", lambda: model(x))
+    counts = _launch_counts()
+    _record_path(what, counts)
+    print(f"[{what}] served forward at batch {RESNET_BATCH}: launches {counts} (checked "
+          f"{checked})")
+    compare_twins_with_cpu_copy(model, x, what, RESNET_CPU_IMAGES)
+    want = dict.fromkeys(counts, 0)
+    want["int8_matmul"] = RESNET_SERVED_INT8
+    if counts != want:
+        raise AssertionError(f"{what}: expected launches {want}")
+    served_gap = float((y_int - y_q).abs().max())
+    agree = float((y_int.argmax(1) == y_q.argmax(1)).float().mean())
+    print(f"[{what}] served against fake-quant: max |diff| {served_gap:.4g} of span {span:.4g},"
+          f" argmax agreement {agree}")
+    if served_gap > RESNET_SERVED_VS_FQ * span:
+        raise AssertionError(f"{what}: served output far from fake-quant")
+    print(f"[{what}] stages (host ms, {CARD[0]}): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in stage.items()))
+
+    def forward():
+        with torch.no_grad():
+            model(x)
+        torch.cuda.synchronize()
+
+    out = {"card": CARD[0], "parameters": n_params, "pairs": len(pairs),
+           "regions": len(regions), "fq_vs_float": err, "span": span,
+           "served_vs_fq": served_gap, "argmax_agreement": agree, "exact_route": split,
+           "launches_fake_quant_forward": fq_counts, "launches_served_forward": counts,
+           "stage_ms": stage}
+    out["profile"] = profile_steps(forward, what, f"served forward of {RESNET_BATCH}")
+    return out
+
+
 def lstm_summary(rows, name, lstm, replaces, path):
     """An LSTM cell kernel's row at the leg's shape with the leg's scales
     (one per gate block) on the main path's ``path`` (the forward: two
@@ -4078,6 +4456,8 @@ def main() -> int:
     quartznet = timed("quartznet_serving", phase_quartznet_serving, dev)
     mobilenet = {d: timed(f"mobilenet_qat_{d}", phase_mobilenet_qat, dev, bf16=d == "bf16")
                  for d in ("bf16", "float32")}
+    ptq = {run: timed(f"ptq_calibrate_{run}", phase_ptq_calibrate, dev, run) for run in PTQ_RUNS}
+    resnet = timed("flexml_resnet18", phase_flexml_resnet18, dev)
 
     int8_by_path = {"serve": serve_int8, "lfc8": lfc_launches["int8_matmul"],
                     "llama_prefill": prefill["launches"]["int8_matmul"],
@@ -4086,7 +4466,10 @@ def main() -> int:
                     **{k: v["launches"]["int8_matmul"] for k, v in serve_decode.items()},
                     "quartznet_serving": quartznet["launches_per_forward"]["int8_matmul"],
                     **{f"llm_ptq_{k}": v["launches_over_main"]["int8_matmul"]
-                       for k, v in llm.items()}}
+                       for k, v in llm.items()},
+                    **{f"ptq_calibrate_{k}": v["launches_over_main"]["int8_matmul"]
+                       for k, v in ptq.items()},
+                    "flexml_resnet18": resnet["launches_served_forward"]["int8_matmul"]}
     int4_by_path = {"llama_w4a8_prefill": w4a8_prefill["launches"]["int4_matmul"],
                     "llama_w4a8_decode": w4a8_decode["launches"]["int4_matmul"]}
     int4_decode = llama_gemm_sums(rows, DECODE_BATCH, "int4_matmul")
@@ -4159,7 +4542,8 @@ def main() -> int:
             PATH_COUNTS[path][name] for path in
             [f"lfc_qat_{d}" for d in lfc_qat] + [f"cnv_qat_{k}" for k in cnv_qat]
             + [f"mobilenet_qat_{d}" for d in mobilenet] + ["quartznet_serving"]
-            + [f"binary_qat_{k}" for k in binary_qat] + [f"llm_ptq_{k}" for k in llm]))
+            + [f"binary_qat_{k}" for k in binary_qat] + [f"llm_ptq_{k}" for k in llm]
+            + [f"ptq_calibrate_{k}" for k in ptq] + ["flexml_resnet18_fake_quant"]))
           for name in ("fake_quant", "fake_quant_backward")),
     ], "serve": serve_out,
         "llama_prefill": {k: v for k, v in prefill.items() if k != "profile"},
@@ -4187,6 +4571,9 @@ def main() -> int:
         "quartznet_serving": {k: v for k, v in quartznet.items() if k != "profile"},
         "mobilenet_qat": {d: {k: v for k, v in run.items() if k != "profile"}
                           for d, run in mobilenet.items()},
+        "ptq_calibrate": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
+                          for k, v in ptq.items()},
+        "flexml_resnet18": {k: v for k, v in resnet.items() if k != "profile"},
         "phase_seconds": PHASE_SECONDS, "seconds": time.perf_counter() - t0}
     report["kernels"][-2]["step_forward_spread"] = fq_spread
     report["kernels"][-2]["exhaustive"] = fq_exhaustive

@@ -502,11 +502,12 @@ def test_bnn_pynq_main_trains_on_the_cpu(capsys):
     ["--dataset", "digits"], ["--network", "CNV_2W2A"], ["--cfg", "lfc_1w1a"], ["--scan"],
     ["--native-loader"], ["--resume", "best.pkl"]], ids=lambda a: "_".join(a).strip("-"))
 def test_bnn_pynq_refuses_what_is_not_ported(argv, tmp_path, monkeypatch):
-    """``--dataset digits``, ``--scan`` and ``--native-loader`` still raise;
-    the 1- and 2-bit networks, ``--cfg`` and ``--resume`` (here from a
-    checkpoint of the default network) are ported and run."""
+    """``--scan`` and ``--native-loader`` still raise; the 1- and 2-bit
+    networks, ``--dataset digits`` (slice 9c: the repository's digits
+    file), ``--cfg`` and ``--resume`` (here from a checkpoint of the default
+    network) are ported and run."""
     monkeypatch.chdir(tmp_path)
-    left_out = argv[0] in ("--dataset", "--scan", "--native-loader")
+    left_out = argv[0] in ("--scan", "--native-loader")
     if argv[0] == "--resume":
         m = bnn_pynq.lfc(device="cpu")
         bnn_pynq.save_checkpoint(argv[1], m, torch.optim.Adam(m.parameters()), 0, 0.5)

@@ -637,10 +637,20 @@ def test_int_bias_matches_jax(jax_ref):
 
 @pytest.mark.parametrize("field", ["requires_input_bit_width", "requires_input_scale"])
 def test_int_bias_off_the_accumulator_grid_is_refused(field):
-    """An INT bias of a constant bit width, or scaled by its own statistics,
-    is not ported: the quantizer refuses it when built."""
-    with pytest.raises(NotImplementedError):
-        BiasQuantizer(presets.IntBias.let(**{field: False}))
+    """An INT bias scaled by its own statistics is not ported: the quantizer
+    refuses it when built. A constant bit width is (slice 9c): the bias
+    takes the config's bit width, not the accumulator's, on the
+    accumulator's scale."""
+    cfg = presets.IntBias.let(**{field: False})
+    if field == "requires_input_scale":
+        with pytest.raises(NotImplementedError):
+            BiasQuantizer(cfg)
+        return
+    out = BiasQuantizer(cfg)(torch.tensor([0.3, -2.0, 40.0]), input_scale=torch.tensor(0.25),
+                             input_bit_width=30.0)
+    assert out.bit_width == float(cfg.bit_width) == 8.0
+    # 40 / 0.25 = 160 passes the 8-bit grid's 127
+    assert torch.equal(out.value, torch.tensor([0.25, -2.0, 31.75]))
 
 
 def test_int_bias_depthwise_bf16_code_domain_matches_jax(jax_ref):
