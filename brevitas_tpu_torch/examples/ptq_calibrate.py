@@ -4,12 +4,15 @@
 Float training (on scikit-learn's digits, upscaled to 28 x 28) -> BatchNorm
 fusion -> cross-layer equalization -> quantization -> activation
 calibration -> optional AdaRound, GPTQ or GPFQ -> bias correction ->
-evaluation -> optional integer serving (``--convert-int``). Prints one JSON
-line with the JAX CLI's keys. ``--export`` (ONNX) waits for slice 10 and
-raises.
+evaluation -> optional ONNX export (``--export {qcdq,qonnx,qop}`` to
+``--export-path``, of the fake-quant model, before any conversion) ->
+optional integer serving (``--convert-int``). Prints one JSON line with the
+JAX CLI's keys (``exported``: the path written).
 
 Run:  python -m brevitas_tpu_torch.examples.ptq_calibrate --model convnet \\
           --fixed-point --gptq --convert-int
+      python -m brevitas_tpu_torch.examples.ptq_calibrate --export qcdq \\
+          --export-path ptq_model.onnx
       python -m brevitas_tpu_torch.examples.ptq_calibrate --device cpu
 
 The float models keep the JAX models' names, layouts and semantics:
@@ -169,7 +172,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--convert-int", action="store_true",
                    help="also convert to integer-serving twins and re-eval")
     p.add_argument("--export", default=None, choices=["qcdq", "qonnx", "qop"],
-                   help="not ported: ONNX export is slice 10")
+                   help="write the PTQ model as ONNX in this dialect to --export-path")
     p.add_argument("--export-path", default="ptq_model.onnx")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -185,8 +188,6 @@ def main(argv=None, keep: Optional[dict] = None) -> dict:
     the card synchronized at each stage's end) and AdaRound's per-layer
     output MSE."""
     args = parse_args(argv)
-    if args.export:
-        raise NotImplementedError("--export: ONNX export is not ported yet (slice 10)")
     device = resolve_device(args.device)
     stage = _Stages(device)
     x_train, y_train = load_digits_upscaled("train")
@@ -246,6 +247,14 @@ def main(argv=None, keep: Optional[dict] = None) -> dict:
               "ptq_acc": ptq_acc, "bit_width": args.bit_width,
               "fixed_point": args.fixed_point, "learned_round": args.learned_round,
               "gptq": args.gptq, "gpfq": args.gpfq}
+    if args.export:
+        from brevitas_tpu_torch import export as E
+
+        fn = {"qcdq": E.export_onnx_qcdq, "qonnx": E.export_qonnx,
+              "qop": E.export_onnx_qop}[args.export]
+        with stage("export"):
+            fn(model, torch.from_numpy(x_test[:1]).to(device), args.export_path)
+        result["exported"] = args.export_path
     if args.convert_int:
         with stage("convert_int"):
             G.convert_integer_inference(model)

@@ -46,6 +46,10 @@ from brevitas_tpu_torch.graph.rotate import (
     random_hadamard,
     transformer_rotation_pairs,
 )
+from brevitas_tpu_torch.graph.standardize import (
+    disable_last_return_quant_tensor,
+    duplicate_shared_stateless_modules,
+)
 
 __all__ = ["named_modules", "get_module", "set_module", "find_modules",
            "replace_modules_by_class", "calibration_mode", "finalize_collect_stats",
@@ -57,4 +61,5 @@ __all__ = ["named_modules", "get_module", "set_module", "find_modules",
            "discover_bn_pairs", "merge_batchnorms", "refresh_weight_quantizers",
            "apply_rotation", "hadamard_matrix", "random_hadamard",
            "transformer_rotation_pairs", "trace_module_graph", "find_bn_pairs",
-           "extract_regions", "extract_act_equalization_regions"]
+           "extract_regions", "extract_act_equalization_regions",
+           "duplicate_shared_stateless_modules", "disable_last_return_quant_tensor"]

@@ -23,6 +23,16 @@ primitives JAX records; the concrete trace sees exactly the calls the
 forward makes on this input, as ``jax.make_jaxpr`` does. Shape and dtype
 reads give no tensor and add no node, as they add no equation in JAX.
 
+``per_call=True`` (the export derivation, ``export/derive.py``) makes
+each call of a module its own node, as JAX's ``per_call`` does: a shared
+quantizer called three times gives three nodes, numbered by
+``call_index``. In that mode every node also records where each of its
+tensor inputs came from (``sources``: the producing node, ``MODEL_INPUT``,
+or None for a constant), a module call the source of its data input
+(``data_source``: the value of its first argument), and every node its
+output's shape (``out_shape``). JAX picks a module's data input as the
+largest tensor crossing into it; the port knows it from the call.
+
 The trace runs on a deep copy of the model under ``torch.no_grad()``, so
 the statistics a training-mode forward collects never reach the model; the
 graph's nodes hold the model's own modules.
@@ -52,7 +62,7 @@ from torch import nn
 from torch.overrides import TorchFunctionMode
 
 __all__ = ["trace_module_graph", "find_bn_pairs", "extract_regions",
-           "extract_act_equalization_regions", "ModuleGraph", "GraphNode"]
+           "extract_act_equalization_regions", "ModuleGraph", "GraphNode", "MODEL_INPUT"]
 
 
 def _node_classes():
@@ -132,7 +142,7 @@ class GraphNode:
 
     def __init__(self, kind: str, path: Optional[str] = None, module=None,
                  prim: Optional[str] = None, args=(), kwargs=None,
-                 channel_axis: Optional[int] = None):
+                 channel_axis: Optional[int] = None, call_index: int = 0):
         self.kind = kind          # 'module' | 'prim'
         self.path = path
         self.module = module
@@ -140,12 +150,20 @@ class GraphNode:
         self.args = args          # its positional arguments
         self.kwargs = kwargs or {}
         self.channel_axis = channel_axis  # of the call's first tensor input
+        self.call_index = call_index  # nth call of this module (per_call)
+        self.sources: list = []   # per tensor input (per_call)
+        self.data_source = None   # a module call's data input (per_call)
+        self.out_shape: Optional[Tuple[int, ...]] = None
         self.preds: List["GraphNode"] = []
         self.succs: List["GraphNode"] = []
 
     def __repr__(self):
         return (f"GraphNode(module {self.path})" if self.kind == "module"
                 else f"GraphNode(prim {self.prim})")
+
+
+# the model's input as a source (per_call)
+MODEL_INPUT = GraphNode("input")
 
 
 class ModuleGraph:
@@ -176,9 +194,11 @@ class _Tracer(TorchFunctionMode):
     """Records torch calls outside node-class modules, and the modules'
     calls through their hooks."""
 
-    def __init__(self, paths: Dict[int, str], originals: Dict[str, nn.Module]):
+    def __init__(self, paths: Dict[int, str], originals: Dict[str, nn.Module],
+                 per_call: bool = False):
         super().__init__()
-        self.paths, self.originals = paths, originals
+        self.paths, self.originals, self.per_call = paths, originals, per_call
+        self.calls: Dict[str, int] = {}
         self.depth = 0
         self.keep = []            # every tensor seen, alive until the trace ends
         self.producer: Dict[int, GraphNode] = {}
@@ -190,7 +210,8 @@ class _Tracer(TorchFunctionMode):
     def _connect(self, node: GraphNode, inputs) -> None:
         for t in inputs:
             src = self.producer.get(id(t))
-            if src is not None and src is not node and node not in src.succs:
+            if (src is not None and src is not node and src is not MODEL_INPUT
+                    and node not in src.succs):
                 src.succs.append(node)
                 node.preds.append(src)
 
@@ -199,6 +220,8 @@ class _Tracer(TorchFunctionMode):
             self.keep.append(t)
             self.producer[id(t)] = node
             self.channels_first[id(t)] = channels_first
+        if outputs:
+            node.out_shape = tuple(outputs[0].shape)
 
     def _layout(self, inputs) -> bool:
         return bool(inputs) and self.channels_first.get(id(inputs[0]), False)
@@ -222,6 +245,7 @@ class _Tracer(TorchFunctionMode):
         name = getattr(func, "__name__", None) or str(func)
         node = GraphNode("prim", prim=name, args=args, kwargs=kwargs,
                          channel_axis=self._channel_axis(inputs))
+        node.sources = [self.producer.get(id(t)) for t in inputs]
         self.nodes.append(node)
         self._connect(node, inputs)
         self._produce(node, outputs, self._layout(inputs) and name not in _PERMUTING)
@@ -244,25 +268,35 @@ class _Tracer(TorchFunctionMode):
         if not outputs:
             return  # gave back its input: no node, as no equation in JAX
         path = self.paths[id(mod)]
-        node = self.modules.get(path)  # all of a module's calls are one node
-        if node is None:
-            node = self.modules[path] = GraphNode("module", path=path,
-                                                  module=self.originals[path])
+        node = self.modules.get(path)
+        if node is None or self.per_call:
+            # all of a module's calls are one node, or (per_call) one each
+            index = self.calls.get(path, 0)
+            self.calls[path] = index + 1
+            node = GraphNode("module", path=path, module=self.originals[path],
+                             call_index=index)
+            self.modules.setdefault(path, node)
             self.nodes.append(node)
+            data = next(_tensors(args[0] if args else list(kwargs.values())[:1]), None)
+            node.data_source = None if data is None else self.producer.get(id(data))
         self._connect(node, inputs)
         layout = _output_layout(mod)
         self._produce(node, outputs, self._layout(inputs) if layout is None else layout)
 
 
-def trace_module_graph(model: nn.Module, sample_input) -> ModuleGraph:
+def trace_module_graph(model: nn.Module, sample_input, *, per_call: bool = False,
+                       extra_classes: Tuple[type, ...] = ()) -> ModuleGraph:
     """Trace ``model(sample_input)`` once and return the module-level
-    dataflow graph, all of a module's calls merged into one node."""
-    classes = _node_classes()
+    dataflow graph, all of a module's calls merged into one node, or with
+    ``per_call`` one node a call (``ModuleGraph.modules`` then holds each
+    module's first call). ``extra_classes`` are node classes besides the
+    default ones."""
+    classes = _node_classes() + tuple(extra_classes)
     originals = {path: mod for path, mod in model.named_modules()
                  if path and isinstance(mod, classes)}
     traced = copy.deepcopy(model)
     paths = {id(mod): path for path, mod in traced.named_modules() if path in originals}
-    tracer = _Tracer(paths, originals)
+    tracer = _Tracer(paths, originals, per_call)
     handles = []
     for path, mod in traced.named_modules():
         if path in originals:
@@ -272,6 +306,8 @@ def trace_module_graph(model: nn.Module, sample_input) -> ModuleGraph:
     x = torch.as_tensor(sample_input, device=device)
     tracer.keep.append(x)
     tracer.channels_first[id(x)] = x.ndim >= 3
+    if per_call:
+        tracer.producer[id(x)] = MODEL_INPUT
     try:
         with torch.no_grad(), tracer:
             traced(x)

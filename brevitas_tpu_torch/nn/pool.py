@@ -48,14 +48,23 @@ class QuantAvgPool2d(QuantLayerMixin, nn.Module):
         self.stride = _tuple(stride, 2) if stride is not None else self.kernel_size
         self.trunc_quant = TruncQuantizer(trunc_quant) if trunc_quant else None
         self.return_quant_tensor = return_quant_tensor
+        # whether the last call truncated (a grid reached it): the exporters
+        # mirror it, so an exported graph truncates where the model does
+        self.last_call_truncated: Optional[bool] = None
+
+    @property
+    def _kernel_elems(self) -> int:
+        return math.prod(self.kernel_size)
 
     def forward(self, x):
         qt = self.unpack_input(x)
         v = qt.value
         summed = F.avg_pool2d(v.double(), self.kernel_size, self.stride,
                               divisor_override=1).to(v.dtype)
-        elems = math.prod(self.kernel_size)
-        if qt.scale is not None and qt.bit_width is not None and self.trunc_quant is not None:
+        elems = self._kernel_elems
+        self.last_call_truncated = (qt.scale is not None and qt.bit_width is not None
+                                    and self.trunc_quant is not None)
+        if self.last_call_truncated:
             acc_bw = qt.bit_width + math.ceil(math.log2(elems))
             acc = QuantTensor(summed, qt.scale, qt.zero_point, acc_bw, signed=qt.signed,
                               training=qt.training)

@@ -259,6 +259,23 @@ Phases; any failure exits non-zero and prints no result:
              against its plain version, the twins and 16 rows of logits
              bit for bit with a CPU copy; served against fake-quant, host
              ms a stage, a profile of the served forward.
+12j. export - the exporters (slice 10) on the card, every fake_quant call
+             held against its plain version: (a) ptq_calibrate.main at the
+             CLI's defaults with --model mlp --export qcdq, --model mlp
+             --export qop and --model convnet --fixed-point --export
+             qonnx: the file validates, the interpreter (each activation
+             quantizer held to the card's codes, a flip only at a certified
+             .5 tie) gives the card's output on the 360 test digits within
+             the JAX export tests' tolerance (linear 1e-4, conv rtol 1e-3 and
+             atol 1e-4, QOp one accumulator step) and, run free, scores
+             ptq_acc; (b) LFC INT4 at 784-1024-1024-1024-10 after 3 QAT
+             steps: QONNX, FINN and QCDQ on 64 rows, export_native and
+             load_native (its integer weights the model's codes),
+             export_torch_qcdq traced on the card within 1e-5 of the model;
+             (c) CNV_4W4A: QCDQ and FINN on 8 images; (d) the flexml
+             ResNet-18: QCDQ through the derived residual walk (20 convs)
+             on 2 images. Each export's ms, bytes and flips (FINN's
+             half-up ties among them).
 13. report - one {"kernels": [...]} line; the last line is
              {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -4176,7 +4193,7 @@ def phase_ptq_calibrate(dev, run: str) -> dict:
     return out
 
 
-def phase_flexml_resnet18(dev) -> dict:
+def phase_flexml_resnet18(dev, keep: dict = None) -> dict:
     """The flexml flow on float_resnet(18, width_mult=1.0) (CIFAR stem, 10
     classes, 11.2 M parameters; random weights from seed 0), at bench's
     CNV inputs: BatchNorm statistics from RESNET_BN_FORWARDS train-mode
@@ -4187,7 +4204,9 @@ def phase_flexml_resnet18(dev) -> dict:
     batch 256: its launches, every fake_quant and int8_matmul call against
     its plain version, the twins against a CPU copy on RESNET_CPU_IMAGES
     rows, served against fake-quant, the exact route's float32 / float64
-    split, host ms a stage and a profile of one served forward."""
+    split, host ms a stage and a profile of one served forward. ``keep``, a
+    dict, receives a copy of the fake-quant model (before the conversion)
+    and its input batch."""
     from brevitas_tpu_torch import graph as G
     from brevitas_tpu_torch.examples.bnn_pynq import load_synthetic
     from brevitas_tpu_torch.graph.convert_int import Int8InferenceConv
@@ -4262,6 +4281,8 @@ def phase_flexml_resnet18(dev) -> dict:
     if fq_counts["fake_quant"] != RESNET_FQ_FORWARD or checked["bias32"] != 21:
         raise AssertionError(f"{what}: expected {RESNET_FQ_FORWARD} fake_quant launches, 21 of "
                              "them 32-bit biases")
+    if keep is not None:
+        keep.update(fake_quant_model=copy.deepcopy(model), x=x)
     timed_stage("convert_int", lambda: G.convert_integer_inference(model))
     convs = [m for m in model.modules() if isinstance(m, Int8InferenceConv)]
     split = {"int8_matmul": sum(c.pointwise for c in convs),
@@ -4303,6 +4324,337 @@ def phase_flexml_resnet18(dev) -> dict:
            "stage_ms": stage}
     out["profile"] = profile_steps(forward, what, f"served forward of {RESNET_BATCH}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Export (slice 10): ptq_calibrate --export and the exporters on LFC, CNV and
+# the flexml ResNet-18
+# ---------------------------------------------------------------------------
+
+# the CLI's defaults with --export (the test digits are the 360 scored)
+EXPORT_PTQ_RUNS = {"mlp_qcdq": ["--model", "mlp", "--export", "qcdq"],
+                   "mlp_qop": ["--model", "mlp", "--export", "qop"],
+                   "convnet_qonnx": ["--model", "convnet", "--fixed-point", "--export", "qonnx"]}
+# the JAX export tests' tolerances (tests/test_export.py): linear nets and
+# conv nets, (rtol, atol); QOp: one step of the last layer's accumulator grid
+EXPORT_TOL = {"linear": (1e-4, 1e-4), "conv": (1e-3, 1e-4)}
+EXPORT_LFC_STEPS = 3     # QAT steps before LFC's export, at lfc_qat's batch
+EXPORT_LFC_BATCH = 64    # rows interpreted
+EXPORT_CNV_BATCH = 8
+EXPORT_RESNET_BATCH = 2
+EXPORT_TORCH_TOL = 1e-5  # the TorchScript twin against the model (JAX tests/test_torch_export.py)
+# an activation code of the graph may differ from the card's only at a .5
+# tie: by one, the two pre-quant values on either side of the half step and
+# within this share of the largest of them
+EXPORT_TIE_SHARE = 1e-5
+RESNET_CONVS = 20        # convs of the derived walk, 3 of them the strided 1 x 1 shortcuts
+
+
+def act_chains(blob: bytes) -> dict:
+    """The graph's activation quantizers: the output name of the node ending
+    each one -> (its pre-quant input, scale and zero-point names, "value"
+    for a dequantized output or "codes" for QOp's integer input)."""
+    from brevitas_tpu_torch.export.onnx_proto import parse_model
+
+    g = parse_model(blob)
+    consumers = {}
+    for n in g.nodes:
+        for name in n.inputs:
+            consumers.setdefault(name, []).append(n)
+
+    def only(n, op):
+        nxt = consumers.get(n.outputs[0], [])
+        return nxt[0] if len(nxt) == 1 and nxt[0].op_type == op else None
+
+    chains = {}
+    for n in g.nodes:
+        ins = n.inputs
+        if n.op_type == "QuantizeLinear" and ins[1].startswith(("act_scale", "x_scale")):
+            end, kind = n, "codes"
+            end = only(end, "Clip") or end
+            deq = only(end, "DequantizeLinear")
+            if deq is not None:
+                end, kind = deq, "value"
+            chains[end.outputs[0]] = (ins[0], ins[1], ins[2], kind)
+        elif n.op_type == "Quant" and ins[1].startswith("act_scale"):
+            chains[n.outputs[0]] = (ins[0], ins[1], ins[2], "value")
+        elif n.op_type == "MultiThreshold":
+            end = only(n, "Add") or n
+            mul = only(end, "Mul")
+            if mul is None or not mul.inputs[1].startswith("act_scale"):
+                raise AssertionError("a MultiThreshold without its scale")
+            chains[mul.outputs[0]] = (ins[0], mul.inputs[1], None, "value")
+    return chains
+
+
+@contextlib.contextmanager
+def recorded_act_calls(model, store: list):
+    """(input, output value) of each activation quantizer call, in order."""
+    from brevitas_tpu_torch.quant.config import QuantType
+    from brevitas_tpu_torch.quant.quantizers import ActQuantizer
+
+    def hook(mod, args, out):
+        store.append((args[0].detach().cpu().numpy(), out.value.detach().cpu().numpy()))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, ActQuantizer) and m.quant_type != QuantType.NONE]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def interpret_against_model(blob: bytes, model, x: torch.Tensor, tol, what: str) -> dict:
+    """Run the exported graph in the port's interpreter on ``x`` (copied to
+    the host) beside the card's forward. Each activation quantizer of the
+    graph is held to the card's call of it: a code may differ only at a
+    certified .5 tie (a flip: counted, FINN's MultiThreshold rounds such a
+    tie up where the model rounds half to even), and the graph goes on from
+    the card's codes. The graph's output must then be the card's within
+    ``tol`` (rtol, atol). Also the graph run free (no codes replaced)."""
+    from brevitas_tpu_torch.export import run_onnx
+
+    calls = []
+    with torch.no_grad(), recorded_act_calls(model, calls):
+        y = model(x)
+    torch.cuda.synchronize()
+    y = (y.value if hasattr(y, "value") else y).cpu().numpy()
+    x_np = x.cpu().numpy()
+    chains = act_chains(blob)
+    state = {"i": 0, "flips": 0}
+
+    def on_output(node, value, env):
+        chain = chains.get(node.outputs[0])
+        if chain is None:
+            return value
+        pre, s_name, z_name, kind = chain
+        i = state["i"]
+        state["i"] += 1
+        if i >= len(calls):
+            raise AssertionError(f"{what}: the graph quantizes more activations than the "
+                                 f"model ({len(calls)})")
+        want_x, want_y = calls[i]
+        s = env[s_name].astype(np.float64)
+        zp = 0.0 if z_name is None else env[z_name].astype(np.float64)
+        centered = (value.astype(np.float64) - zp if kind == "codes"
+                    else np.round(value.astype(np.float64) / s))
+        c_want = np.round(want_y.astype(np.float64) / s)
+        if centered.shape != c_want.shape:
+            raise AssertionError(f"{what}: activation {i}: graph {centered.shape}, model "
+                                 f"{c_want.shape}")
+        differ = centered != c_want
+        if differ.any():
+            s_b = np.broadcast_to(s, differ.shape)[differ]
+            half = (centered[differ] + c_want[differ]) / 2
+            got_x = np.broadcast_to(env[pre], differ.shape)[differ]
+            mine_x = want_x[differ]
+            ok = ((np.abs(centered[differ] - c_want[differ]) == 1)
+                  & ((got_x / s_b - half) * (mine_x / s_b - half) <= 0)
+                  & (np.abs(got_x - mine_x) <= EXPORT_TIE_SHARE * np.abs(want_x).max()))
+            if not ok.all():
+                raise AssertionError(f"{what}: activation {i}: {int((~ok).sum())} codes differ "
+                                     "from the card's away from a .5 tie")
+            state["flips"] += int(differ.sum())
+        if kind == "codes":
+            return (c_want + zp).astype(value.dtype)
+        return want_y.astype(np.float32)
+
+    t0 = time.perf_counter()
+    (got,) = run_onnx(blob, {"input": x_np}, on_output=on_output)
+    interp_s = time.perf_counter() - t0
+    if state["i"] != len(calls):
+        raise AssertionError(f"{what}: the graph quantizes {state['i']} activations, the "
+                             f"model {len(calls)}")
+    rtol, atol = tol
+    err = float(np.abs(got - y).max())
+    if got.shape != y.shape or not np.allclose(got, y, rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: the graph's output is {err:.3g} from the card's "
+                             f"(rtol {rtol}, atol {atol})")
+    (free,) = run_onnx(blob, {"input": x_np})
+    return {"flips": state["flips"], "act_quantizers": len(calls), "max_abs_err": err,
+            "free_max_abs_err": float(np.abs(free - y).max()), "free": free, "y": y,
+            "interp_s": interp_s}
+
+
+def timed_export(fn, model, x, what):
+    """One export on the card: (bytes, ms), the bytes validated."""
+    from brevitas_tpu_torch.export import validate_onnx
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = fn(model, x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    validate_onnx(blob)
+    return blob, ms
+
+
+def _export_row(rows: dict, what: str, blob: bytes, ms: float, check: dict, style: str):
+    rows[what] = {"ms": ms, "bytes": len(blob), "flips": check["flips"],
+                  "act_quantizers": check["act_quantizers"],
+                  "max_abs_err": check["max_abs_err"],
+                  "free_max_abs_err": check["free_max_abs_err"],
+                  "interp_s": check["interp_s"]}
+    kind = "FINN half-up flips" if style == "finn" else "tie flips"
+    print(f"[export] {what}: {ms:.1f} ms on {CARD[0]}, {len(blob)} bytes, validated; "
+          f"interpreted ({check['interp_s']:.2f} s on the host) against the card: "
+          f"{check['act_quantizers']} activation quantizers, {kind} {check['flips']}, output "
+          f"max |diff| {check['max_abs_err']:.3g} (run free: {check['free_max_abs_err']:.3g})")
+
+
+def phase_export(dev, resnet: dict) -> dict:
+    """The exporters on the card (slice 10), every fake_quant call held
+    against its plain version as it returns (checked_kernel_calls), the
+    launches counted:
+    (a) ptq_calibrate.main at the CLI's defaults with --export (EXPORT_PTQ_RUNS):
+        the file validates; the interpreter, held to the card's
+        activations (interpret_against_model), gives the card's output on
+        the 360 test digits within the JAX export tests' tolerance; the
+        graph run free scores the run's ptq_acc;
+    (b) LFC INT4 at bench's width (784-1024-1024-1024-10) after
+        EXPORT_LFC_STEPS QAT steps at lfc_qat's batch: QONNX, FINN and QCDQ
+        interpreted on EXPORT_LFC_BATCH rows; export_native and load_native
+        (the integer weights the model's codes); export_torch_qcdq traced on
+        the card, within EXPORT_TORCH_TOL of the model;
+    (c) CNV_4W4A at bench's width (BatchNorm statistics from one train-mode
+        forward at batch 256): QCDQ and FINN on EXPORT_CNV_BATCH images;
+    (d) the flexml_resnet18 phase's fake-quant model: QCDQ through the
+        derived residual walk (RESNET_CONVS convs) on EXPORT_RESNET_BATCH
+        images.
+    Each export's host ms, bytes, and flips at .5 ties (FINN's half-up
+    rounding among them)."""
+    import tempfile
+
+    from brevitas_tpu_torch import export as E
+    from brevitas_tpu_torch.examples import bnn_pynq, ptq_calibrate
+    from brevitas_tpu_torch.export.qcdq import export_items
+    from brevitas_tpu_torch.models import cnv, lfc
+    from brevitas_tpu_torch.nn import QuantConv2d
+
+    rows, checked = {}, {}
+    tmp = tempfile.mkdtemp(prefix="export_")
+    _reset_launch_counts()
+    with checked_kernel_calls(checked):
+        # (a) the CLI
+        for run, argv in EXPORT_PTQ_RUNS.items():
+            keep = {}
+            path = os.path.join(tmp, f"{run}.onnx")
+            t0 = time.perf_counter()
+            result = ptq_calibrate.main(argv + ["--export-path", path, "--device", str(dev)],
+                                        keep=keep)
+            main_s = time.perf_counter() - t0
+            model = keep["model"]
+            blob = open(path, "rb").read()
+            E.validate_onnx(blob)
+            tol = EXPORT_TOL["conv" if "convnet" in run else "linear"]
+            if run.endswith("qop"):
+                last = model.l3
+                with torch.no_grad():
+                    step = float(last.input_quant(torch.zeros(1, 64, device=dev)).scale
+                                 * last.quant_weight().scale.max())
+                tol = (0.0, step)
+            x = torch.from_numpy(keep["x_test"]).to(dev)
+            check = interpret_against_model(blob, model, x, tol, f"ptq_{run}")
+            acc = float(np.mean(check["free"].argmax(-1) == keep["y_test"]))
+            _export_row(rows, f"ptq_{run}", blob, keep["stage_ms"]["export"], check,
+                        argv[-1])
+            rows[f"ptq_{run}"].update(main_s=main_s, ptq_acc=result["ptq_acc"],
+                                      interpreted_acc=acc, tol=tol)
+            print(f"[export] ptq_{run}: main {main_s:.1f} s; interpreted accuracy {acc} on the "
+                  f"{len(keep['y_test'])} test digits, ptq_acc {result['ptq_acc']}")
+            if acc != result["ptq_acc"] or result["exported"] != path:
+                raise AssertionError(f"ptq_{run}: interpreted accuracy {acc} is not ptq_acc")
+
+        # (b) LFC INT4 after a few QAT steps
+        model = lfc(4, 4, 4, dropout=0.0, generator=torch.Generator().manual_seed(0), device=dev)
+        rng = np.random.default_rng(0)
+        xs = torch.from_numpy(rng.random((EXPORT_LFC_STEPS, LFC_QAT_BATCH, 28, 28, 1),
+                                         dtype=np.float32)).to(dev)
+        ys = torch.from_numpy(rng.integers(0, 10, (EXPORT_LFC_STEPS, LFC_QAT_BATCH))
+                              .astype(np.int32)).to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=LFC_QAT_LR)
+        for i in range(EXPORT_LFC_STEPS):
+            bnn_pynq.train_step(model, opt, xs[i], ys[i])
+        model.eval()
+        x = xs[0, :EXPORT_LFC_BATCH].reshape(EXPORT_LFC_BATCH, -1)
+        for style, fn in (("qonnx", E.export_qonnx), ("finn", E.export_finn_onnx),
+                          ("qcdq", E.export_onnx_qcdq)):
+            blob, ms = timed_export(fn, model, x, f"lfc_{style}")
+            _export_row(rows, f"lfc_{style}", blob, ms,
+                        interpret_against_model(blob, model, x, EXPORT_TOL["linear"],
+                                                f"lfc_{style}"), style)
+        path = os.path.join(tmp, "lfc.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = E.export_native(model, path)
+        native_ms = (time.perf_counter() - t0) * 1e3
+        loaded = E.load_native(path)
+        for name, entry in loaded.items():
+            codes = model.get_submodule(name).quant_weight().int().cpu().numpy().T
+            if not np.array_equal(entry["w_int"].astype(np.int64), codes.astype(np.int64)):
+                raise AssertionError(f"lfc native: {name}'s integer weights are not the model's")
+        rows["lfc_native"] = {"ms": native_ms, "bytes": os.path.getsize(path),
+                              "layers": info["layers"]}
+        print(f"[export] lfc_native: {native_ms:.1f} ms, {os.path.getsize(path)} bytes, "
+              f"{info['layers']} layers (int4 packed); load_native's integer weights equal "
+              "the card model's codes")
+        t0 = time.perf_counter()
+        ts = E.export_torch_qcdq(model, x)
+        torch.cuda.synchronize()
+        ts_ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            got, want = ts(x), model(x)
+        ts_err = float((got - want).abs().max())
+        rows["lfc_torch_qcdq"] = {"ms": ts_ms, "max_abs_err": ts_err,
+                                  "device": str(got.device)}
+        print(f"[export] lfc_torch_qcdq: traced on {got.device} in {ts_ms:.1f} ms; against the "
+              f"fake-quant forward max |diff| {ts_err:.3g} (bound rtol = atol = "
+              f"{EXPORT_TORCH_TOL})")
+        if not torch.allclose(got, want, rtol=EXPORT_TORCH_TOL, atol=EXPORT_TORCH_TOL):
+            raise AssertionError("lfc_torch_qcdq: the TorchScript twin is not the model")
+
+        # (c) CNV_4W4A
+        model = cnv(4, 4, 8, generator=torch.Generator().manual_seed(0), device=dev)
+        x_all, _ = bnn_pynq.load_synthetic("train", "cnv", n=256)
+        model.train()
+        with torch.no_grad():
+            model(torch.from_numpy(x_all).to(dev))
+        model.eval()
+        x = torch.from_numpy(x_all[:EXPORT_CNV_BATCH]).to(dev)
+        for style, fn in (("qcdq", E.export_onnx_qcdq), ("finn", E.export_finn_onnx)):
+            blob, ms = timed_export(fn, model, x, f"cnv_{style}")
+            _export_row(rows, f"cnv_{style}", blob, ms,
+                        interpret_against_model(blob, model, x, EXPORT_TOL["conv"],
+                                                f"cnv_{style}"), style)
+
+        # (d) the flexml ResNet-18's derived residual walk
+        model = resnet["fake_quant_model"]
+        x = resnet["x"][:EXPORT_RESNET_BATCH]
+        items, _ = export_items(model, x, model(x))
+        convs = [it for it in items if isinstance(it, QuantConv2d)]
+        strided = [c for c in convs if c.kernel_size == (1, 1) and c.stride == (2, 2)]
+        glue = sorted({it[0] for it in items if isinstance(it, tuple)})
+        print(f"[export] resnet18 derived walk: {len(items)} items, {len(convs)} convs "
+              f"({len(strided)} strided 1 x 1 shortcuts), glue {glue}")
+        if len(convs) != RESNET_CONVS or len(strided) != 3 or "add_saved" not in glue:
+            raise AssertionError("resnet18: the derived walk is not ResNet-18's")
+        blob, ms = timed_export(E.export_onnx_qcdq, model, x, "resnet18_qcdq")
+        _export_row(rows, "resnet18_qcdq", blob, ms,
+                    interpret_against_model(blob, model, x, EXPORT_TOL["conv"],
+                                            "resnet18_qcdq"), "qcdq")
+    counts = _launch_counts()
+    _record_path("export", counts)
+    print(f"[export] launches {counts}; calls held bit for bit against their plain versions: "
+          f"{checked}")
+    if counts["fake_quant"] == 0 or counts["fake_quant"] != checked["fake_quant"]:
+        raise AssertionError(f"export: fake_quant launches {counts['fake_quant']} against "
+                             f"{checked['fake_quant']} calls checked")
+    others = {k: v for k, v in counts.items() if k not in ("fake_quant", "fake_quant_backward")
+              and v}
+    if others:
+        raise AssertionError(f"export: unexpected launches {others}")
+    return {"card": CARD[0], "exports": rows, "launches": counts, "calls_checked": checked}
 
 
 def lstm_summary(rows, name, lstm, replaces, path):
@@ -4457,7 +4809,10 @@ def main() -> int:
     mobilenet = {d: timed(f"mobilenet_qat_{d}", phase_mobilenet_qat, dev, bf16=d == "bf16")
                  for d in ("bf16", "float32")}
     ptq = {run: timed(f"ptq_calibrate_{run}", phase_ptq_calibrate, dev, run) for run in PTQ_RUNS}
-    resnet = timed("flexml_resnet18", phase_flexml_resnet18, dev)
+    resnet_keep = {}
+    resnet = timed("flexml_resnet18", phase_flexml_resnet18, dev, resnet_keep)
+    exported = timed("export", phase_export, dev, resnet_keep)
+    del resnet_keep
 
     int8_by_path = {"serve": serve_int8, "lfc8": lfc_launches["int8_matmul"],
                     "llama_prefill": prefill["launches"]["int8_matmul"],
@@ -4543,7 +4898,7 @@ def main() -> int:
             [f"lfc_qat_{d}" for d in lfc_qat] + [f"cnv_qat_{k}" for k in cnv_qat]
             + [f"mobilenet_qat_{d}" for d in mobilenet] + ["quartznet_serving"]
             + [f"binary_qat_{k}" for k in binary_qat] + [f"llm_ptq_{k}" for k in llm]
-            + [f"ptq_calibrate_{k}" for k in ptq] + ["flexml_resnet18_fake_quant"]))
+            + [f"ptq_calibrate_{k}" for k in ptq] + ["flexml_resnet18_fake_quant", "export"]))
           for name in ("fake_quant", "fake_quant_backward")),
     ], "serve": serve_out,
         "llama_prefill": {k: v for k, v in prefill.items() if k != "profile"},
@@ -4574,6 +4929,7 @@ def main() -> int:
         "ptq_calibrate": {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
                           for k, v in ptq.items()},
         "flexml_resnet18": {k: v for k, v in resnet.items() if k != "profile"},
+        "export": exported,
         "phase_seconds": PHASE_SECONDS, "seconds": time.perf_counter() - t0}
     report["kernels"][-2]["step_forward_spread"] = fq_spread
     report["kernels"][-2]["exhaustive"] = fq_exhaustive

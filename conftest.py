@@ -56,6 +56,7 @@ FILE_SECONDS = {
     "tests/test_torch_port_fake_quant.py": 9, "tests/test_torch_port_llm_ptq.py": 57,
     "tests/test_torch_port_llm_ptq_flags.py": 51,
     "tests/test_torch_port_ptq.py": 66, "tests/test_torch_port_ptq_cli.py": 95,
+    "tests/test_torch_port_export.py": 68, "tests/test_torch_port_export_derive.py": 24,
     "tests/test_profiling.py": 10, "tests/test_quant_tensor.py": 6,
     "tests/test_native_ste.py": 4, "tests/test_ops_ste.py": 4,
     "tests/test_hygiene.py": 1, "tests/test_reference_parity.py": 1,

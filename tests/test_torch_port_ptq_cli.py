@@ -334,7 +334,7 @@ def test_accuracies_and_twins_match_jax(jax_ref, name):
 
 def test_port_main_mlp_meets_jax_bounds():
     """tests/test_end_to_end.py's bounds for the MLP flow (its ONNX export
-    is slice 10's)."""
+    is held in tests/test_torch_port_export_derive.py)."""
     out = cli.main(["--model", "mlp", "--train-epochs", "3", "--calib-batches", "2",
                     "--bias-correct-batches", "1", "--convert-int", "--device", "cpu"])
     assert out["float_acc"] > 0.8
@@ -353,8 +353,11 @@ def test_port_main_convnet_fixed_point_meets_jax_bounds():
 
 
 def test_port_main_export_raises():
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        cli.main(["--export", "qcdq", "--device", "cpu"])
+    """--export takes the three ONNX dialects of the JAX CLI and raises on
+    any other (the export flow itself is held in
+    tests/test_torch_port_export_derive.py)."""
+    with pytest.raises(SystemExit):
+        cli.main(["--export", "finn", "--device", "cpu"])
 
 
 def test_port_resnet_flexml_flow():
